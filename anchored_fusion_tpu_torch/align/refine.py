@@ -26,6 +26,7 @@ from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.ops.sw_cuda import sw_align_fused
 from anchored_fusion_tpu_torch.align.aligner import AlignmentResult, orient_reads
+from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 def path_matches(reads: np.ndarray, wins: np.ndarray, match: int = 1,
                  mismatch: int = 4, gap_open: int = 6,
@@ -99,9 +100,10 @@ def refine_alignments(
     ref_codes: np.ndarray,
     cfg: Optional[AlignConfig] = None,
     band: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> AlignmentResult:
     """Return a copy of ``res`` with gapped coordinates where SW wins."""
+    device = resolve_device(device)
     cfg = cfg or AlignConfig()
     band = band or cfg.band_half_width
     # suspicious = near-threshold-or-better score with imperfect identity or
@@ -149,13 +151,14 @@ def refine_alignments(
 def refine_result(res: AlignmentResult, seqs: np.ndarray,
                   ref_codes: np.ndarray, cfg: AlignConfig,
                   min_score: int, min_identity: float,
-                  min_seg_len: int, device="cpu") -> AlignmentResult:
+                  min_seg_len: int, device="cuda") -> AlignmentResult:
     """Config-gated gapped post-pass shared by both production aligners.
 
     Orients the raw reads, refines on ``device``, and re-applies the stage's
     mapping thresholds (an indel read can cross them only after its gap is
     bridged).
     """
+    device = resolve_device(device)
     if not len(seqs):
         return res
     lens = (np.asarray(seqs) != PAD).sum(axis=1)

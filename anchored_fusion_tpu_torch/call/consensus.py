@@ -26,6 +26,7 @@ import torch
 
 from anchored_fusion_tpu_torch.config import CallConfig
 from anchored_fusion_tpu_torch.call.breakpoints import SplitCluster
+from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 _CODE = {"A": 0, "T": 1, "G": 2, "C": 3}
 _DECODE = "ATGC"
@@ -152,7 +153,7 @@ def pack_flanks(seq_left: str, seq_right: str) -> np.ndarray:
 
 def pwm_votes_device(rows: np.ndarray, weights: np.ndarray,
                      group_ids: np.ndarray, n_groups: int,
-                     device="cpu") -> np.ndarray:
+                     device="cuda") -> np.ndarray:
     """Batched PWM vote accumulation on ``device``: the consensus inputs.
 
     ``rows`` (M, 400) consensus-code flanks, ``weights`` (M,) read counts,
@@ -160,6 +161,7 @@ def pwm_votes_device(rows: np.ndarray, weights: np.ndarray,
     ``index_add_`` -> (n_groups, 400, 4) int32 vote tensors.  Integer adds
     are exact and independent of their order.
     """
+    device = resolve_device(device)
     r = torch.from_numpy(np.ascontiguousarray(rows, np.int8)).to(device)
     w = torch.from_numpy(np.asarray(weights, np.int32)).to(device)
     gid = torch.from_numpy(np.asarray(group_ids, np.int64)).to(device)
@@ -173,11 +175,12 @@ def pwm_votes_device(rows: np.ndarray, weights: np.ndarray,
 
 def merge_clusters(groups: List[Tuple[int, List[SplitCluster]]],
                    cfg: CallConfig | None = None,
-                   device="cpu") -> List[SplitCluster]:
+                   device="cuda") -> List[SplitCluster]:
     """Merge raw per-breakpoint clusters into consensus split-read records.
 
     The vote accumulation runs on ``device`` (see pwm_votes_device).
     """
+    device = resolve_device(device)
     cfg = cfg or CallConfig()
     thr = cfg.merge_identity
     win = cfg.breakpoint_merge_window

@@ -11,15 +11,19 @@ size: a 100 Mbp genome, a ~7 kb anchor transcript and 1,000,000 read pairs
 of 101 bp.  Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
-  kernel     per shape: kernel vs plain equality, kernel_ms, plain_ms,
-             bound_us, launches
+  kernel     registers and spill bytes of every kernel instantiation
+             (ptxas), then per batch (random at KERNEL_SHAPES, tie-heavy,
+             forward-only with random masks): kernel vs plain equality,
+             kernel_ms, plain_ms, bound_ms (and the bound at the plain
+             recurrence's 12 operations a cell), share of bound, launches
   parity     rows and counters of call_gene on cuda == on cpu
   main_path  per-stage times, reads/s, peak device memory, kernel launches
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
-  (kernels)  {"kernels": [...]}: every ported kernel with its launches in
-             main_path, its time, bound and plain time on the main path's
-             own inputs
+  (kernels)  {"kernels": [...]}: both entries of the SW kernel
+             (sw_align_fused, sw_end) with their launches in main_path and
+             their time, bound and plain time on the main path's own inputs
+             (sw_end, which call_gene does not call, with random masks)
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -38,17 +42,6 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "anchored_fusion_tpu_torch"
 
-# H100 SXM peak rates, for the bound:
-# HBM at 3.35 TB/s; int32 add/subtract/min/max issue on 64 lanes per SM
-# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0), 132 SMs at 1.98 GHz.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Integer operations per DP cell in the recurrence of ops/sw.py: the
-# substitution select, E (2 subtracts, 1 max), HnoF (1 add, 2 max), F
-# (2 subtracts, 1 max), H (1 max) and the running best (1 max).
-SW_OPS_PER_CELL = 12
-
 GENOME_BP = 100_000_000
 N_PAIRS = 1_000_000
 READ_LEN = 101
@@ -66,116 +59,98 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ---------------------------------------------------------------- inputs
-
-def sw_inputs(rng, B, R, W, read_len):
-    """SW pairs: reads of ``read_len`` bases in R-wide rows; windows holding
-    each read with implanted indels and SNPs, plus N bases, PAD tails and
-    all-PAD rows."""
-    import numpy as np
-    reads = rng.integers(0, 4, (B, R)).astype(np.int8)
-    reads[:, read_len:] = 5
-    wins = rng.integers(0, 4, (B, W)).astype(np.int8)
-    for b in range(B):
-        seg = reads[b, :read_len].copy()
-        p = int(rng.integers(read_len // 4, 3 * read_len // 4))
-        if b % 4 == 1:
-            seg = np.concatenate([seg[:p], seg[p + 3:]])
-        elif b % 4 == 2:
-            seg = np.concatenate([seg[:p], rng.integers(0, 4, 2).astype(
-                np.int8), seg[p:]])
-        elif b % 4 == 3:
-            seg[p] = (seg[p] + 1) % 4
-        o = int(rng.integers(0, max(1, W - read_len)))
-        seg = seg[:W - o]
-        wins[b, o:o + len(seg)] = seg
-        if b % 5 == 0:
-            reads[b, int(rng.integers(0, read_len))] = 4
-        if b % 7 == 0:
-            wins[b, int(rng.integers(0, W))] = 4
-        if b % 6 == 0:
-            wins[b, W - int(rng.integers(1, 24)):] = 5
-        if b % 97 == 0:
-            reads[b, :] = 5
-    return reads, wins
-
-
-def sw_bound_ms(reads, wins, out) -> float:
-    """Least time for this batch: DP cells this data needs (forward: valid
-    read x valid window bases; reverse: the same over each pair's prefix up
-    to the forward end) x ops per cell at the int32 rate, or the bytes in
-    and out at the HBM rate, whichever is larger."""
-    import torch
-    rv = reads != 5
-    wv = wins != 5
-    fwd = rv.sum(1).double() * wv.sum(1).double()
-    er, ej = out[1].long(), out[2].long()
-    ar_r = torch.arange(reads.shape[1], device=reads.device)[None, :]
-    ar_w = torch.arange(wins.shape[1], device=wins.device)[None, :]
-    rev = ((rv & (ar_r <= er[:, None])).sum(1).double()
-           * (wv & (ar_w <= ej[:, None])).sum(1).double())
-    ops = float((fwd + rev).sum()) * SW_OPS_PER_CELL
-    nbytes = reads.numel() + wins.numel() + out.numel() * 4
-    return max(ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-
-
-def time_ms(fn, reps: int) -> float:
-    """Median of ``reps`` timed calls (CUDA events), after one warm call."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        st = torch.cuda.Event(enable_timing=True)
-        en = torch.cuda.Event(enable_timing=True)
-        st.record()
-        fn()
-        en.record()
-        torch.cuda.synchronize()
-        times.append(st.elapsed_time(en))
-    times.sort()
-    return times[len(times) // 2]
-
-
 # ---------------------------------------------------------------- phases
 
+# (B, R, W, read length) of the kernel phase's random batches: the main
+# path's batch sizes and row width, full cards, longer reads
+KERNEL_SHAPES = [(30, 128, 160, 101), (64, 128, 160, 101),
+                 (256, 128, 160, 101), (1024, 128, 160, 101),
+                 (1000, 128, 160, 101), (4096, 128, 160, 101),
+                 (1000, 101, 133, 101), (1000, 256, 288, 250),
+                 (64, 1024, 1056, 1000)]
+
+
+def _rows(x):
+    """A kernel's output as one (k, B) tensor."""
+    import torch
+    return torch.stack(x) if isinstance(x, tuple) else x
+
+
+def sw_case(kind: str, reads, wins, masks=None) -> dict:
+    """Run one batch through the kernel and its plain version: equality,
+    launches, times and bounds.  ``masks`` selects the forward-only entry."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+    from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain, sw_end
+
+    if masks is None:
+        kern = lambda: sw_cuda.sw_align_fused_cuda(reads, wins)  # noqa: E731
+        plain = lambda: sw_align_fused_plain(reads, wins)  # noqa: E731
+        counter = "launches"
+    else:
+        kern = lambda: sw_cuda.sw_end_cuda(reads, wins, *masks)  # noqa: E731
+        plain = lambda: sw_end(reads, wins, *masks)  # noqa: E731
+        counter = "end_launches"
+    before = getattr(sw_cuda, counter)
+    got = _rows(kern())
+    torch.cuda.synchronize()
+    launched = getattr(sw_cuda, counter) - before
+    want = _rows(plain())
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    if masks is None:
+        cells = swb.dp_cells(reads != swb.PAD, wins != swb.PAD, want[1],
+                             want[2])
+        nbytes = reads.numel() + wins.numel() + want.numel() * 4
+    else:
+        cells = swb.dp_cells(*masks)
+        nbytes = 2 * (reads.numel() + wins.numel()) + want.numel() * 4
+    kernel_ms = swb.time_ms(kern, 20)
+    bound = swb.bound_ms(cells, nbytes, swb.KERNEL_OPS_PER_CELL)
+    return {"kind": kind, "B": reads.shape[0], "R": reads.shape[1],
+            "W": wins.shape[1], "equal": equal,
+            "max_abs_err": int((got - want).abs().max()) if got.numel() else 0,
+            "kernel_ms": kernel_ms, "plain_ms": swb.time_ms(plain, 3),
+            "bound_ms": bound,
+            "bound_ms_12op": swb.bound_ms(cells, nbytes,
+                                          swb.PLAIN_OPS_PER_CELL),
+            "share_of_bound": bound / kernel_ms, "launches": launched}
+
+
 def phase_kernel():
+    """Build the SW kernel, print each instantiation's registers and spills,
+    and hold both entries equal to their plain versions: random batches at
+    KERNEL_SHAPES, a tie-heavy batch, and the forward-only entry with random
+    masks."""
     import numpy as np
     import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
     from anchored_fusion_tpu_torch.ops import sw_cuda
-    from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain
 
     t0 = time.time()
     so = sw_cuda.build()
     build_s = time.time() - t0
     rng = np.random.default_rng(0)
-    shapes = [(64, 128, 160, 101), (256, 128, 160, 101),
-              (1024, 128, 160, 101), (1000, 128, 160, 101),
-              (1000, 101, 133, 101)]
+    cuda = lambda *xs: [torch.from_numpy(x).cuda() for x in xs]  # noqa: E731
+    cases = [("random", *cuda(*swb.sw_inputs(rng, B, R, W, lr)), None)
+             for B, R, W, lr in KERNEL_SHAPES]
+    cases.append(("ties", *cuda(*swb.tie_inputs(rng, 1000, 128, 160, 101)),
+                  None))
+    reads, wins = swb.sw_inputs(rng, 1000, 128, 160, 101)
+    cases.append(("masked", *cuda(reads, wins),
+                  cuda(*swb.random_masks(rng, reads, wins))))
     results = []
-    for B, R, W, lr in shapes:
-        reads_np, wins_np = sw_inputs(rng, B, R, W, lr)
-        reads = torch.from_numpy(reads_np).cuda()
-        wins = torch.from_numpy(wins_np).cuda()
-        before = sw_cuda.launches
-        got = sw_cuda.sw_align_fused_cuda(reads, wins)
-        torch.cuda.synchronize()
-        launched = sw_cuda.launches - before
-        want = sw_align_fused_plain(reads, wins)
-        equal = [bool(torch.equal(got[i], want[i])) for i in range(5)]
-        rec = {"B": B, "R": R, "W": W, "equal": equal,
-               "max_abs_err": int((got - want).abs().max()),
-               "kernel_ms": time_ms(
-                   lambda: sw_cuda.sw_align_fused_cuda(reads, wins), 20),
-               "plain_ms": time_ms(lambda: sw_align_fused_plain(reads, wins),
-                                   3),
-               "bound_us": sw_bound_ms(reads, wins, got) * 1e3,
-               "launches": launched}
+    for kind, r, w, masks in cases:
+        rec = sw_case(kind, r, w, masks)
         results.append(rec)
-        if not all(equal) or launched != 1:
+        if not all(rec["equal"]) or rec["launches"] != 1:
             emit({"phase": "kernel", "build_s": build_s, "shapes": results})
-            raise AssertionError(f"SW kernel disagrees at B={B} R={R} W={W}")
-    emit({"phase": "kernel", "name": "sw_align_fused", "library": os.path.basename(so),
-          "build_s": round(build_s, 3), "shapes": results})
+            raise AssertionError(
+                f"SW kernel disagrees: {kind} B={rec['B']} R={rec['R']} "
+                f"W={rec['W']}")
+    emit({"phase": "kernel", "name": "sw_align_fused, sw_end",
+          "library": os.path.basename(so), "build_s": round(build_s, 3),
+          "ptxas": sw_cuda.ptxas_usage(), "shapes": results})
 
 
 def _timeless(counters: dict) -> dict:
@@ -343,7 +318,7 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         if device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        sw_cuda.launches = 0
+        sw_cuda.launches = sw_cuda.end_launches = 0
         t0 = time.time()
         res = pipe.call_gene(anchor.name, anchor_codes, batch,
                              out_prefix=os.path.join(tmpdir, "main"))
@@ -351,6 +326,7 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
             torch.cuda.synchronize()
         call_s = time.time() - t0
         launches = sw_cuda.launches
+        end_launches = sw_cuda.end_launches
     finally:
         sw_cuda.sw_align_fused_cuda = kernel_fn
 
@@ -373,7 +349,7 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         "fusions": fusions,
         "expected": expected, "expected_breakpoint": break5,
         "called_breakpoint": top["anchor_breakpoint"] if top else None,
-        "sw_launches": launches,
+        "sw_launches": launches, "sw_end_launches": end_launches,
         "peak_device_bytes": (torch.cuda.max_memory_allocated()
                               if device == "cuda" else None),
     }
@@ -430,35 +406,44 @@ def phase_profile(rerun, device: str = "cuda", top: int = 8):
     return rec
 
 
-def kernel_on_main_path_inputs(captured, launches: int) -> dict:
-    """The SW kernel against its plain version on the main path's inputs,
-    timed; one entry of the kernels line."""
+def kernels_on_main_path_inputs(captured, rec: dict) -> list[dict]:
+    """Both SW entries against their plain versions on the main path's
+    inputs, timed: the fused entry on the batches call_gene handed it, the
+    forward-only entry (which call_gene does not call) on the same batches
+    with random validity masks.  The entries of the kernels line."""
+    import numpy as np
     import torch
-    from anchored_fusion_tpu_torch.ops import sw_cuda
-    from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
 
-    err = 0
-    ms = plain_ms = bound_ms = 0.0
+    rng = np.random.default_rng(1)
+    cases = {"sw_align_fused": [], "sw_end": []}
     for reads, wins in captured:
-        got = sw_cuda.sw_align_fused_cuda(reads, wins)
-        want = sw_align_fused_plain(reads, wins)
-        torch.cuda.synchronize()
-        err = max(err, int((got - want).abs().max()) if got.numel() else 0)
-        ms += time_ms(lambda: sw_cuda.sw_align_fused_cuda(reads, wins), 20)
-        plain_ms += time_ms(lambda: sw_align_fused_plain(reads, wins), 3)
-        bound_ms += sw_bound_ms(reads, wins, got)
-    if err:
-        raise AssertionError(f"SW kernel disagrees on main-path inputs: {err}")
-    return {
-        "name": "sw_align_fused", "route": "cuda",
-        "source": f"{PKG}/csrc/sw.cu",
-        "replaces": "anchored_fusion_tpu/ops/sw_pallas.py:43",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "operations",
-        "library_ms": None,
-        "main_path_batches": [list(r.shape) + [w.shape[1]]
-                              for r, w in captured],
-    }
+        cases["sw_align_fused"].append(sw_case("main_path", reads, wins))
+        masks = swb.random_masks(rng, reads.cpu().numpy(), wins.cpu().numpy())
+        cases["sw_end"].append(sw_case(
+            "main_path_masked", reads, wins,
+            [torch.from_numpy(m).cuda() for m in masks]))
+    out = []
+    for name, recs in cases.items():
+        err = max((r["max_abs_err"] for r in recs), default=0)
+        if err or not all(all(r["equal"]) for r in recs):
+            raise AssertionError(f"{name} disagrees on main-path inputs")
+        out.append({
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
+            "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
+                         if name == "sw_align_fused"
+                         else "anchored_fusion_tpu/ops/sw_pallas.py:200"),
+            "launches": rec["sw_launches" if name == "sw_align_fused"
+                            else "sw_end_launches"],
+            "max_abs_err": err,
+            "ms": sum(r["kernel_ms"] for r in recs),
+            "plain_ms": sum(r["plain_ms"] for r in recs),
+            "bound_ms": sum(r["bound_ms"] for r in recs),
+            "bound_ms_12op": sum(r["bound_ms_12op"] for r in recs),
+            "bound_by": "operations", "library_ms": None,
+            "main_path_batches": [[r["B"], r["R"], r["W"]] for r in recs],
+        })
+    return out
 
 
 def main() -> int:
@@ -489,7 +474,7 @@ def main() -> int:
             phase_parity(tmp)
             rec, captured, rerun = phase_main_path(tmp)
             phase_profile(rerun)
-        kernels = [kernel_on_main_path_inputs(captured, rec["sw_launches"])]
+        kernels = kernels_on_main_path_inputs(captured, rec)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         return 1

@@ -122,3 +122,35 @@ def test_pwm_votes_match():
     got = tcons.pwm_votes_device(rows, w, gid, G, device="cpu")
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
+
+
+def _one_result():
+    z = np.zeros(1, np.int32)
+    return tal.AlignmentResult(
+        score=z + 30, strand=np.zeros(1, np.int8), read_start=z,
+        read_end=z + 29, ref_start=z.astype(np.int64),
+        ref_end=z.astype(np.int64) + 29, matches=z + 29, length=z + 30,
+        second_score=z, mapped=np.ones(1, bool))
+
+
+@pytest.mark.parametrize("entry", ["refine_alignments", "refine_result",
+                                   "pwm_votes_device", "merge_clusters"])
+def test_entry_point_defaults_to_cuda(entry):
+    from anchored_fusion_tpu_torch.align import refine as trefine
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    seqs = np.zeros((1, 40), np.int8)
+    ref = np.zeros(100, np.int8)
+    calls = {
+        "refine_alignments": lambda: trefine.refine_alignments(
+            _one_result(), seqs, np.full(1, 40), ref),
+        "refine_result": lambda: trefine.refine_result(
+            _one_result(), seqs, ref, AlignConfig(), 20, 0.5, 20),
+        "pwm_votes_device": lambda: tcons.pwm_votes_device(
+            np.zeros((1, tcons.WIDTH), np.int8), np.ones(1, np.int32),
+            np.zeros(1, np.int32), 1),
+        "merge_clusters": lambda: tcons.merge_clusters([]),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
