@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import gzip
+import sys
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -64,8 +65,21 @@ def _read_raw(path: str) -> bytes:
 
 
 def _read_one_matrix(path: str, max_len: Optional[int] = None):
-    """(names, seq (N, L) int8, lens (N,)) by Python parsing."""
+    """(names, seq (N, L) int8, lens (N,)) via the native codec (io/native);
+    Python parsing on a machine without a C compiler or, with a warning, for
+    a buffer the codec rejects (a record that does not start with '@')."""
     data = _read_raw(path)
+    from anchored_fusion_tpu_torch.io import native
+    res = native.decode_fastq_native(data, max_len)
+    if res is not None:
+        return res
+    if native.get_lib() is not None:
+        print(f"warning: the native FASTQ codec rejected {path}; parsing it "
+              "in Python", file=sys.stderr)
+    return _parse_python(data, max_len)
+
+
+def _parse_python(data: bytes, max_len: Optional[int] = None):
     names, seqs = [], []
     lines = data.decode().splitlines()
     for i in range(0, len(lines) - 3, 4):

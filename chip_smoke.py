@@ -20,10 +20,30 @@ of 101 bp.  Each phase prints one JSON line:
   main_path  per-stage times, reads/s, peak device memory, kernel launches
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
+  filter     the filter model at full width on 4,096 random rows:
+             P(class 1) on cuda vs the same weights on cpu (max_abs_diff,
+             bound 1e-4), scoring rows/s, training steps/s at batch 256,
+             peak device memory, profiles of both, and a whole training run
+             at the cli phase's size, warm (train_run) and in a fresh
+             process (train_run_cold)
+  cli        ``python -m anchored_fusion_tpu_torch.cli.bulk`` with default
+             flags (filter and training on, full width, 30 epochs) on a
+             ~20 Mbp genome of 300 genes and 1,000,000 read pairs with
+             chimeric artifacts: rc, run_stats.json stage seconds, negatives
+             mined, best held-out AUC, SW launches, the engineered fusion's
+             breakpoint and Natural_score; then a rerun with
+             --not_train_filter_model on the saved model (BASELINE config 2)
+             that must give the same rows and scores; that the C codec
+             decoded both FASTQ files; and the config-2 run once more in
+             this process (``bulk.main``) on cuda, with the SW kernel's
+             inputs captured, and on cpu: same rows, scores within
+             FILTER_TOL
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path and
-             their time, bound and plain time on the main path's own inputs
-             (sw_end, which call_gene does not call, with random masks)
+             in the cli run, and their time, bound and plain time on the
+             main path's own inputs (sw_end, which call_gene does not call,
+             with random masks); sw_align_fused is also held equal to the
+             plain SW on every batch the in-process cli run handed it
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -32,6 +52,8 @@ package beside this script.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -279,6 +301,27 @@ def main_path_inputs(genome_bp: int, n_pairs: int, seed: int = 5):
     return sg, genome, anchor, partner, decoy, break5, batch
 
 
+@contextlib.contextmanager
+def capturing_sw(captured: list):
+    """Set the SW kernels' launch counts to 0, then, while the block runs,
+    keep a copy of the inputs of every fused launch in ``captured``, to
+    check and time the kernel on exactly those tensors afterwards."""
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    kernel_fn = sw_cuda.sw_align_fused_cuda
+
+    def recording(reads, windows, *args, **kw):
+        captured.append((reads.clone(), windows.clone()))
+        return kernel_fn(reads, windows, *args, **kw)
+
+    sw_cuda.sw_align_fused_cuda = recording
+    sw_cuda.launches = sw_cuda.end_launches = 0
+    try:
+        yield
+    finally:
+        sw_cuda.sw_align_fused_cuda = kernel_fn
+
+
 def phase_main_path(tmpdir: str, device: str = "cuda",
                     genome_bp: int = GENOME_BP, n_pairs: int = N_PAIRS):
     """Drive call_gene once; returns (record, captured SW kernel inputs, a
@@ -304,21 +347,11 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
     index_s = time.time() - t0
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
 
-    # capture the inputs the main path hands the SW kernel, to time and
-    # check the kernel on exactly those tensors afterwards
     captured = []
-    kernel_fn = sw_cuda.sw_align_fused_cuda
-
-    def recording(reads, windows, *args, **kw):
-        captured.append((reads.clone(), windows.clone()))
-        return kernel_fn(reads, windows, *args, **kw)
-
-    sw_cuda.sw_align_fused_cuda = recording
-    try:
-        if device == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        sw_cuda.launches = sw_cuda.end_launches = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with capturing_sw(captured):
         t0 = time.time()
         res = pipe.call_gene(anchor.name, anchor_codes, batch,
                              out_prefix=os.path.join(tmpdir, "main"))
@@ -327,8 +360,6 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         call_s = time.time() - t0
         launches = sw_cuda.launches
         end_launches = sw_cuda.end_launches
-    finally:
-        sw_cuda.sw_align_fused_cuda = kernel_fn
 
     c = res.counters
     expected = f"{anchor.name}--{partner.name}"
@@ -369,16 +400,32 @@ def phase_profile(rerun, device: str = "cuda", top: int = 8):
     """A second, warm call_gene under torch.profiler: the device's busy time
     (union of its kernel and copy intervals), its idle share of the call's
     wall time, and the kernels that take the most device time."""
+    wall_s, busy_s, events, kernels = profiled(rerun, device, top)
+    # no device events means the profiler could not trace the card: the
+    # shares are then not measured (null), not zero
+    rec = {"phase": "profile", "device": device, "call_gene_s": wall_s,
+           "device_busy_s": busy_s,
+           "device_idle_share": (1.0 - busy_s / wall_s
+                                 if busy_s is not None else None),
+           "device_events": events, "top_device_ms": kernels}
+    emit(rec)
+    return rec
+
+
+def profiled(fn, device: str = "cuda", top: int = 8):
+    """Run ``fn`` under torch.profiler: (wall s, device busy s — the union
+    of the kernel and copy intervals, None without device events — device
+    events, the ``top`` kernels by device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if device == "cuda":
+    if device.startswith("cuda"):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         t0 = time.time()
-        rerun()
-        if device == "cuda":
+        fn()
+        if device.startswith("cuda"):
             torch.cuda.synchronize()
         wall_s = time.time() - t0
     spans, by_name = [], {}
@@ -394,23 +441,18 @@ def phase_profile(rerun, device: str = "cuda", top: int = 8):
         busy_us += max(0.0, t - max(s, end))
         end = max(end, t)
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    # no device events means the profiler could not trace the card: the
-    # shares are then not measured (null), not zero
-    rec = {"phase": "profile", "device": device, "call_gene_s": wall_s,
-           "device_busy_s": busy_us / 1e6 if spans else None,
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall_s if spans else None,
-           "device_events": len(spans),
-           "top_device_ms": [{"name": k[:96], "ms": v[0], "count": v[1]}
-                             for k, v in kernels]}
-    emit(rec)
-    return rec
+    return (wall_s, busy_us / 1e6 if spans else None, len(spans),
+            [{"name": k[:96], "ms": v[0], "count": v[1]} for k, v in kernels])
 
 
-def kernels_on_main_path_inputs(captured, rec: dict) -> list[dict]:
+def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
+                                cli_captured) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
-    with random validity masks.  The entries of the kernels line."""
+    with random validity masks.  The fused entry is also held equal to the
+    plain SW on every batch of the in-process cli run.  The entries of the
+    kernels line, with the launches of main_path and of the cli phase."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -423,11 +465,15 @@ def kernels_on_main_path_inputs(captured, rec: dict) -> list[dict]:
         cases["sw_end"].append(sw_case(
             "main_path_masked", reads, wins,
             [torch.from_numpy(m).cuda() for m in masks]))
+    on_cli = {"sw_align_fused": [sw_case("cli", r, w)
+                                 for r, w in cli_captured],
+              "sw_end": []}
     out = []
     for name, recs in cases.items():
-        err = max((r["max_abs_err"] for r in recs), default=0)
-        if err or not all(all(r["equal"]) for r in recs):
-            raise AssertionError(f"{name} disagrees on main-path inputs")
+        err = max((r["max_abs_err"] for r in recs + on_cli[name]), default=0)
+        if err or not all(all(r["equal"]) for r in recs + on_cli[name]):
+            raise AssertionError(f"{name} disagrees on main-path or cli "
+                                 "inputs")
         out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
             "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
@@ -435,6 +481,8 @@ def kernels_on_main_path_inputs(captured, rec: dict) -> list[dict]:
                          else "anchored_fusion_tpu/ops/sw_pallas.py:200"),
             "launches": rec["sw_launches" if name == "sw_align_fused"
                             else "sw_end_launches"],
+            "cli_launches": cli["sw_launches" if name == "sw_align_fused"
+                                else "sw_end_launches"],
             "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -442,8 +490,514 @@ def kernels_on_main_path_inputs(captured, rec: dict) -> list[dict]:
             "bound_ms_12op": sum(r["bound_ms_12op"] for r in recs),
             "bound_by": "operations", "library_ms": None,
             "main_path_batches": [[r["B"], r["R"], r["W"]] for r in recs],
+            "cli_batches": [[r["B"], r["R"], r["W"]] for r in on_cli[name]],
         })
     return out
+
+
+FILTER_ROWS = 4096
+FILTER_TOL = 1e-4   # P(class 1), cuda vs cpu: both full float32
+CLI_PAIRS = 1_000_000
+CLI_GENES = 300
+CLI_ARTIFACT_PAIRS = 6000
+CLI_ARTIFACT_GENE_PAIRS = 1600
+# gene names: three letters from this alphabet (no E, G or I, so no name
+# starts with IG or ENSG) encode the gene number, so no two genes share the
+# 3-letter prefix that negative mining's Inspect_name rejects
+_NAME_LETTERS = "ABCDFHJKLMNOPQRSTUVW"
+
+
+def junction_rows(rng, n: int) -> list[str]:
+    """Random 201-bp filter rows: 100 bases, 'H', 100 bases."""
+    import numpy as np
+    b = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 201))]
+    b[:, 100] = ord("H")
+    return [r.tobytes().decode() for r in b]
+
+
+def filter_flop_per_row(cfg, len_seq: int = 201) -> int:
+    """Multiply-add operations x 2 of one forward row of the filter model."""
+    c = cfg
+    l1 = len_seq // c.maxpool_dim
+    l2 = l1 // c.maxpool_dim
+    e, t = c.embed_dim, c.transformer_dim
+
+    def classify(length, width):
+        s = width // c.class_shrink_dim
+        return (length * width * s + length * s * c.class_dim
+                + c.class_dim * c.num_class)
+
+    macs = len_seq * c.input_dim * e
+    for length, cin in ((len_seq, e), (l1, e)):
+        macs += length * c.window * (cin * c.block_dim + c.block_dim * e)
+    macs += classify(l1, e) + classify(l2, e) + l2 * e * t
+    macs += c.transformer_layers * (4 * l2 * t * t + 2 * l2 * l2 * t
+                                    + 2 * l2 * t * c.transformer_ff)
+    macs += classify(l2, t)
+    return 2 * macs
+
+
+def phase_filter() -> dict:
+    """The filter model at full width (FilterModelConfig()): P(class 1) on
+    FILTER_ROWS random rows on the card against the same weights on the CPU,
+    scoring rows/s, training steps/s at the configured batch, peak device
+    memory.  The port runs the filter in full float32 (its convolutions are
+    float32 matrix products, TF32 off), so whatever cuDNN's TF32 default,
+    the bound FILTER_TOL covers only sums taken in another order."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.config import FilterModelConfig
+    from anchored_fusion_tpu_torch.models import data as fdata
+    from anchored_fusion_tpu_torch.models.filter_cnn import (
+        FilterModel, full_fp32)
+    from anchored_fusion_tpu_torch.models.train import (
+        TrainedFilter, score_junctions, train_step)
+
+    cfg = FilterModelConfig()
+    device, n_rows, steps = "cuda", FILTER_ROWS, 20
+    rng = np.random.default_rng(7)
+    rows = junction_rows(rng, n_rows)
+    sd = FilterModel(cfg).state_dict()
+    on_dev = TrainedFilter(cfg, sd, cfg.len_seq, device=device)
+    on_cpu = TrainedFilter(cfg, sd, cfg.len_seq, device="cpu")
+    sync = torch.cuda.synchronize
+    with full_fp32():
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+    got = np.asarray(score_junctions(on_dev, rows))
+    want = np.asarray(score_junctions(on_cpu, rows))
+    diff = float(np.abs(got - want).max())
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        score_junctions(on_dev, rows)
+        times.append(time.time() - t0)
+    score_s = sorted(times)[1]
+
+    model = FilterModel(cfg).to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    x = torch.from_numpy(fdata.one_hot_junctions(rows[:cfg.batch_size])).to(
+        device)
+    y = torch.from_numpy(rng.integers(0, 2, x.shape[0])).to(device)
+    for _ in range(3):
+        train_step(model, opt, x, y, gen, cfg)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for _ in range(steps):
+        train_step(model, opt, x, y, gen, cfg)
+    sync()
+    step_s = (time.time() - t0) / steps
+    peak = torch.cuda.max_memory_allocated()
+    prof_steps = 5
+    train_prof = profiled(lambda: [train_step(model, opt, x, y, gen, cfg)
+                                   for _ in range(prof_steps)], device)
+    score_prof = profiled(lambda: score_junctions(on_dev, rows), device)
+    train_run = filter_training_run()
+    train_run_cold = cold_training_run()
+    flop = filter_flop_per_row(cfg)
+    rec = {"phase": "filter", "device": device, "rows": n_rows,
+           "width": {"embed": cfg.embed_dim, "block": cfg.block_dim,
+                     "transformer": cfg.transformer_dim,
+                     "ff": cfg.transformer_ff},
+           "max_abs_diff": diff, "tolerance": FILTER_TOL,
+           "tf32": tf32, "score_s": score_s,
+           "score_rows_per_s": n_rows / score_s,
+           "train_batch": int(x.shape[0]), "train_step_s": step_s,
+           "train_steps_per_s": 1.0 / step_s,
+           "forward_flop_per_row": flop,
+           "score_tflop_per_s": flop * n_rows / score_s / 1e12,
+           # forward + backward ~ 3 forwards
+           "train_tflop_per_s": 3 * flop * x.shape[0] / step_s / 1e12,
+           "peak_device_bytes": peak,
+           # under torch.profiler: device busy time and the top kernels of
+           # 5 training steps and of one scoring pass over the rows
+           "train_profile": {"steps": prof_steps, "wall_s": train_prof[0],
+                             "device_busy_s": train_prof[1],
+                             "top_device_ms": train_prof[3]},
+           "score_profile": {"wall_s": score_prof[0],
+                             "device_busy_s": score_prof[1],
+                             "top_device_ms": score_prof[3]},
+           "train_run": train_run, "train_run_cold": train_run_cold}
+    emit(rec)
+    if not diff <= FILTER_TOL:
+        raise AssertionError(f"filter on {device} differs from cpu: {diff}")
+    return rec
+
+
+def filter_training_run() -> dict:
+    """``train_filter_model`` at full width on the card as the cli phase
+    runs it: the shipped positives against CLI_ARTIFACT_GENE_PAIRS random
+    rows (the cli phase mines one row per artifact gene pair), 30 epochs,
+    the best model saved as msgpack; with the host one-hot encoding of its
+    rows timed apart."""
+    import tempfile
+    import numpy as np
+    from anchored_fusion_tpu_torch.config import FilterModelConfig
+    from anchored_fusion_tpu_torch.models import data as fdata
+    from anchored_fusion_tpu_torch.models.train import train_filter_model
+
+    cfg = FilterModelConfig()
+    positives = fdata.read_junction_file(
+        os.path.join(HERE, "data", "positive_samples.txt"))
+    negatives = junction_rows(np.random.default_rng(8),
+                              CLI_ARTIFACT_GENE_PAIRS)
+    n = min(len(positives), len(negatives))
+    t0 = time.time()
+    fdata.one_hot_junctions(positives[:n] + negatives[:n])
+    one_hot_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        filt = train_filter_model(positives, negatives, cfg,
+                                  os.path.join(tmp, "model.msgpack"),
+                                  verbose=False, device="cuda")
+        run_s = time.time() - t0
+    n_train = int(cfg.train_frac * n) * 2
+    return {"rows": 2 * n, "train_rows": n_train, "epochs": cfg.num_epochs,
+            "steps": cfg.num_epochs * -(-n_train // cfg.batch_size),
+            "wall_s": run_s, "one_hot_s": one_hot_s,
+            "best_auc": filt.best_auc}
+
+
+_COLD_TRAIN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+import chip_smoke
+print(json.dumps(chip_smoke.filter_training_run()))
+"""
+
+
+def cold_training_run() -> dict:
+    """filter_training_run at full width in a fresh process whose CUDA
+    context is already up, as in the CLI: the first use of the filter's
+    kernels falls inside the run."""
+    proc = subprocess.run([sys.executable, "-c", _COLD_TRAIN, HERE],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cold training run failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _gene_namer(gi: int) -> str:
+    n = len(_NAME_LETTERS)
+    return (_NAME_LETTERS[gi // (n * n) % n] + _NAME_LETTERS[gi // n % n]
+            + _NAME_LETTERS[gi % n] + str(gi))
+
+
+def _codes_to_strs(codes) -> list[str]:
+    """(n, L) int8 codes without PAD -> n strings."""
+    import numpy as np
+    b = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    width = b.shape[1]
+    flat = b.tobytes().decode()
+    return [flat[i:i + width] for i in range(0, len(flat), width)]
+
+
+def cli_inputs(d: str, seed: int = 17) -> dict:
+    """CLI input files in ``d``, written with bench/simulate.py's writers: a
+    genome of CLI_GENES spliced genes 50-80 kb apart (~20 Mbp) and its GTF,
+    the anchor FASTA, a gene-names file, and CLI_PAIRS read pairs of 101 bp:
+    the engineered fusion at 40x and anchor, partner and decoy wild type at
+    20x (as in main_path), CLI_ARTIFACT_PAIRS chimeric-artifact pairs over
+    CLI_ARTIFACT_GENE_PAIRS distinct gene pairs (mate 1 = 50 bp of an exon of
+    one gene + 51 bp of an exon of another, the anchor excluded; mate 2 from
+    the second gene's exon), and intergenic background for the rest."""
+    n_pairs, n_genes = CLI_PAIRS, CLI_GENES
+    n_artifacts, n_artifact_genes = CLI_ARTIFACT_PAIRS, CLI_ARTIFACT_GENE_PAIRS
+    import numpy as np
+    from anchored_fusion_tpu_torch.bench.simulate import (
+        make_synthetic_genome, write_fasta, write_fastq_pair, write_gtf)
+    from anchored_fusion_tpu_torch.ops.encode import revcomp
+
+    rng = np.random.default_rng(seed)
+    sg = make_synthetic_genome(rng, n_genes=n_genes, exons_per_gene=(4, 8),
+                               exon_len=(150, 400), intron_len=(300, 1500),
+                               intergenic=(50_000, 80_000),
+                               namer=_gene_namer)
+    g = sg.genome.seq
+    anchor, partner, decoy, break5, names, codes = engineered_pairs(
+        sg, rng, 3)
+    reads = [codes[:, :, :READ_LEN]]
+    genes = [x for x in sg.genes.values() if x.name != anchor.name]
+    pairs = set()
+    while len(pairs) < n_artifact_genes:
+        i, j = rng.choice(len(genes), 2, replace=False)
+        pairs.add((int(min(i, j)), int(max(i, j))))
+    pairs = sorted(pairs)
+    art = np.empty((n_artifacts, 2, READ_LEN), np.int8)
+    for k in range(n_artifacts):
+        i, j = pairs[k % len(pairs)]
+        if rng.integers(0, 2):
+            i, j = j, i
+        segs = []
+        for gene, n in ((genes[i], 50), (genes[j], 51)):
+            s, e = gene.exons[int(rng.integers(0, len(gene.exons)))]
+            at = s - 1 + int(rng.integers(0, e - s + 1 - n))
+            segs.append(g[at:at + n])
+        art[k, 0] = np.concatenate(segs)
+        s, e = genes[j].exons[int(rng.integers(0, len(genes[j].exons)))]
+        at = s - 1 + int(rng.integers(0, e - s + 1 - READ_LEN))
+        art[k, 1] = revcomp(g[at:at + READ_LEN])
+    reads.append(art)
+    names += [f"ART_{k}" for k in range(n_artifacts)]
+
+    # background: fragments of ~200 bp in the intergenic stretches (genes
+    # and 1 kb around them excluded), mate 2 reverse-complemented
+    spans = sorted((x.exons[0][0] - 1000, x.exons[-1][1] + 1000)
+                   for x in sg.genes.values())
+    lo, free = 0, []
+    for s, e in spans + [(len(g), len(g))]:
+        if s - lo > 1000:
+            free.append((lo, s - 500))
+        lo = max(lo, e)
+    free = np.asarray(free, np.int64)
+    n_bg = n_pairs - len(names)
+    which = rng.choice(len(free), n_bg, p=(free[:, 1] - free[:, 0])
+                       / (free[:, 1] - free[:, 0]).sum())
+    start = free[which, 0] + (rng.random(n_bg) * (free[which, 1]
+                                                  - free[which, 0])).astype(
+        np.int64)
+    ins = np.clip(rng.normal(200, 20, n_bg).astype(np.int64), READ_LEN, 400)
+    ar = np.arange(READ_LEN)
+    comp = np.array([3, 2, 1, 0, 4, 5], np.int8)
+    bg = np.stack([g[start[:, None] + ar],
+                   comp[g[(start + ins - READ_LEN)[:, None] + ar]][:, ::-1]],
+                  axis=1)
+    err = rng.random(bg.shape) < 0.001
+    bg[err] = (bg[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    reads.append(bg)
+    names += [f"BG_{k}" for k in range(n_bg)]
+    reads = np.concatenate(reads)
+
+    paths = {k: os.path.join(d, v) for k, v in (
+        ("fastq1", "reads_1.fastq"), ("fastq2", "reads_2.fastq"),
+        ("genome", "genome.fa"), ("gtf", "genes.gtf"),
+        ("anchor", "anchor.fa"), ("names", "gene_names.txt"))}
+    write_fastq_pair(paths["fastq1"], paths["fastq2"], names,
+                     _codes_to_strs(reads[:, 0]), _codes_to_strs(reads[:, 1]))
+    write_gtf(sg, paths["gtf"])
+    write_fasta({"chr1": _codes_to_strs(g[None])[0]}, paths["genome"])
+    write_fasta({f"NM_000001.1 {anchor.name}": anchor.transcript(sg.genome)},
+                paths["anchor"])
+    with open(paths["names"], "w") as fh:
+        fh.write(anchor.name + "\n")
+    return {"paths": paths, "anchor": anchor.name, "partner": partner.name,
+            "break5": break5, "genome_bp": int(len(g)), "genes": n_genes,
+            "read_pairs": int(len(names)), "artifact_pairs": n_artifacts,
+            "artifact_gene_pairs": len(pairs)}
+
+
+def cli_argv(inp: dict, out: str, extra=()) -> list[str]:
+    p = inp["paths"]
+    return ["--file_anchored_cds", p["anchor"], "--gene_names", p["names"],
+            "--fastq1", p["fastq1"], "--fastq2", p["fastq2"],
+            "--file_ref_seq", p["genome"], "--file_ref_ann", p["gtf"],
+            "--out_folder", out, *extra]
+
+
+def cli_outputs(inp: dict, out: str) -> dict:
+    """The stats of run_stats.json and the prediction files (rows of
+    fields) that a CLI run wrote into ``out``."""
+    stats = {}
+    if os.path.exists(os.path.join(out, "run_stats.json")):
+        with open(os.path.join(out, "run_stats.json")) as fh:
+            stats = json.load(fh)["stats"]
+    prefix = os.path.join(out, f"{inp['anchor']}_fusion",
+                          f"{inp['anchor']}_fusion_predictions")
+    files = {}
+    for suffix in (".txt", "_abridged.txt"):
+        if os.path.exists(prefix + suffix):
+            with open(prefix + suffix) as fh:
+                files[suffix] = [ln.split("\t") for ln in
+                                 fh.read().splitlines()]
+    return {"stats": stats, "files": files}
+
+
+def run_cli(inp: dict, out: str, cwd: str, extra=()) -> dict:
+    """One run of the bulk CLI as a user runs it, in a subprocess on the
+    card: ``python -m anchored_fusion_tpu_torch.cli.bulk``, default flags
+    but ``extra``."""
+    cmd = [sys.executable, "-m", f"{PKG}.cli.bulk", *cli_argv(inp, out, extra)]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.time() - t0
+    with open(out + ".log", "w") as fh:
+        fh.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    return {"rc": proc.returncode, "wall_s": wall, "stdout": proc.stdout,
+            **cli_outputs(inp, out)}
+
+
+def run_cli_here(inp: dict, out: str, cwd: str, extra, device: str) -> dict:
+    """The same run in this process, through ``bulk.main(argv, device)``,
+    its standard output kept."""
+    from anchored_fusion_tpu_torch.cli import bulk
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+        rc = bulk.main(cli_argv(inp, out, extra), device=device)
+    return {"rc": rc, "wall_s": time.time() - t0, "stdout": buf.getvalue(),
+            **cli_outputs(inp, out)}
+
+
+def _without_score(table):
+    """Prediction-file rows without the Natural_score column, and the
+    scores."""
+    col = table[0].index("Natural_score") if table and \
+        "Natural_score" in table[0] else None
+    if col is None:
+        return table, []
+    return ([r[:col] + r[col + 1:] for r in table],
+            [float(r[col]) for r in table[1:]])
+
+
+def _emitted_rows(run: dict) -> list[str]:
+    return [ln for ln in run["stdout"].splitlines() if "\tspanning=" in ln]
+
+
+def same_calls(a: dict, b: dict):
+    """Whether two CLI runs wrote the same rows (stdout rows, and the
+    prediction files but for Natural_score), and the largest difference of
+    their scores (None without scores)."""
+    same = bool(a["files"]) and a["files"].keys() == b["files"].keys()
+    diffs = []
+    for suffix, table in a["files"].items():
+        x, sx = _without_score(table)
+        y, sy = _without_score(b["files"].get(suffix, []))
+        same = same and x == y and len(sx) == len(sy)
+        diffs += [abs(u - v) for u, v in zip(sx, sy)]
+    return (same and _emitted_rows(a) == _emitted_rows(b),
+            max(diffs) if diffs else None)
+
+
+def phase_cli(tmpdir: str):
+    """The bulk CLI end to end with default flags (filter on, training on,
+    full-width model, 30 epochs): read FASTQ, build the index, mine
+    negatives, train, call the anchor gene with the SW kernel, score, write
+    the predictions.  Then BASELINE config 2: a rerun with
+    --not_train_filter_model on the saved model must give the same rows and
+    scores.  The config-2 run once more in this process, on cuda with the SW
+    kernel's inputs captured and on cpu, must give them too.  Fails if the
+    filter turned itself off or the C codec did not decode the FASTQ files.
+    Returns (record, the SW batches of the in-process cuda run)."""
+    from anchored_fusion_tpu_torch.config import FilterModelConfig
+    from anchored_fusion_tpu_torch.io import native
+    from anchored_fusion_tpu_torch.io.fastq import _read_raw
+    from anchored_fusion_tpu_torch.models.train import TrainedFilter
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    d = os.path.join(tmpdir, "cli")
+    run_dir = os.path.join(d, "cwd")          # a CWD without ./data
+    os.makedirs(run_dir, exist_ok=True)
+    t0 = time.time()
+    inp = cli_inputs(d)
+    inputs_s = time.time() - t0
+    cfg = FilterModelConfig()
+    first = run_cli(inp, os.path.join(d, "train"), run_dir)
+    model = os.path.join(d, "train", "model_dir", "model.msgpack")
+    negatives = os.path.join(d, "train", "model_dir", "negative_samples.txt")
+    config2 = ["--not_train_filter_model", "--model_file", model]
+    second = run_cli(inp, os.path.join(d, "load"), run_dir, config2)
+    # the C codec, not the Python parser, decodes the CLI's FASTQ files
+    codec = native.get_lib() is not None and all(
+        native.decode_fastq_native(_read_raw(inp["paths"][k])) is not None
+        for k in ("fastq1", "fastq2"))
+    captured = []
+    with capturing_sw(captured):
+        here = run_cli_here(inp, os.path.join(d, "here_cuda"), run_dir,
+                            config2, "cuda")
+        here_launches = sw_cuda.launches
+    on_cpu = run_cli_here(inp, os.path.join(d, "here_cpu"), run_dir,
+                          config2, "cpu")
+
+    expected = f"{inp['anchor']}--{inp['partner']}"
+    where = f"{inp['anchor']}:{inp['break5']}"
+    abridged = first["files"].get("_abridged.txt", [[]])
+    hits = [r for r in abridged[1:] if r[0] == expected and r[2] == where]
+    header = abridged[0]
+    score = (float(hits[0][header.index("Natural_score")])
+             if hits and "Natural_score" in header else None)
+    n_neg = 0
+    if os.path.exists(negatives):
+        with open(negatives) as fh:
+            n_neg = sum(1 for ln in fh if ln.strip())
+    full_width = False
+    if os.path.exists(model):
+        TrainedFilter.load(model, cfg, cfg.len_seq, "cpu").module()
+        full_width = True
+    rerun_same, rerun_diff = same_calls(first, second)
+    here_same, here_diff = same_calls(second, here)
+    cpu_same, cpu_diff = same_calls(here, on_cpu)
+    stage = lambda r: {k: v for k, v in r["stats"].items()  # noqa: E731
+                       if k.startswith(("time.", "rate."))}
+    launches = first["stats"].get("kernel_launches", {})
+    rerun_launches = second["stats"].get("kernel_launches", {})
+    epochs = sum(1 for ln in first["stdout"].splitlines()
+                 if ln.startswith("epoch "))
+    runs = (first, second, here, on_cpu)
+    off = [m for m in ("not performing filter", "filter disabled")
+           if any(m in r["stdout"] for r in runs)]
+    rec = {"phase": "cli", "device": "cuda", "rc": first["rc"],
+           "rerun_rc": second["rc"], "inputs_s": inputs_s,
+           **{k: inp[k] for k in ("genome_bp", "genes", "read_pairs",
+                                  "artifact_pairs", "artifact_gene_pairs")},
+           "codec": codec,
+           "wall_s": first["wall_s"], "stage_s": stage(first),
+           "rerun_wall_s": second["wall_s"], "rerun_stage_s": stage(second),
+           "negatives_mined": n_neg, "best_auc": first["stats"].get(
+               "filter_best_auc"),
+           "epochs": epochs, "model_file": os.path.exists(model),
+           "model_full_width": full_width,
+           "sw_launches": launches.get("sw_align_fused"),
+           "sw_end_launches": launches.get("sw_end"),
+           "rerun_sw_launches": rerun_launches.get("sw_align_fused"),
+           "expected": expected, "expected_breakpoint": inp["break5"],
+           "called_score": score,
+           "emitted": any(r.startswith(f"{expected}\t{inp['break5']}\t")
+                          for r in _emitted_rows(first)),
+           "rerun_rows_equal": rerun_same, "rerun_max_score_diff": rerun_diff,
+           # config 2 in this process: on cuda, the SW batches captured
+           # (held against the plain SW on the kernels line), and on cpu
+           "here_rc": here["rc"], "here_wall_s": here["wall_s"],
+           "here_sw_launches": here_launches,
+           "here_sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
+           "here_rows_equal": here_same, "here_max_score_diff": here_diff,
+           "cpu_rc": on_cpu["rc"], "cpu_wall_s": on_cpu["wall_s"],
+           "cpu_stage_s": stage(on_cpu), "cpu_rows_equal": cpu_same,
+           "cpu_max_score_diff": cpu_diff,
+           "filter_off_messages": off, "cut": None}
+    emit(rec)
+    problems = []
+    if any(r["rc"] for r in runs):
+        problems.append(f"rc {[r['rc'] for r in runs]}")
+    if not codec:
+        problems.append("the C codec did not decode the FASTQ files")
+    if off or not rec["model_file"] or score is None:
+        problems.append(f"filter turned off or left no score: {off}")
+    if n_neg < 1000:
+        problems.append(f"{n_neg} negatives mined")
+    if epochs != cfg.num_epochs or not full_width:
+        problems.append(f"{epochs} epochs, full width {full_width}")
+    for name, same, diff in (("config-2 rerun", rerun_same, rerun_diff),
+                             ("in-process cuda run", here_same, here_diff),
+                             ("cpu run", cpu_same, cpu_diff)):
+        if not same or diff is None or diff > FILTER_TOL:
+            problems.append(f"{name} differs (max score diff {diff})")
+    if not rec["sw_launches"]:
+        problems.append("the CLI launched no SW kernel")
+    if not (here_launches == len(captured) == rec["rerun_sw_launches"]):
+        problems.append(f"in-process SW launches {here_launches}, "
+                        f"{len(captured)} captured, subprocess "
+                        f"{rec['rerun_sw_launches']}")
+    if problems:
+        raise AssertionError("cli phase: " + "; ".join(problems))
+    return rec, captured
 
 
 def main() -> int:
@@ -474,7 +1028,11 @@ def main() -> int:
             phase_parity(tmp)
             rec, captured, rerun = phase_main_path(tmp)
             phase_profile(rerun)
-        kernels = kernels_on_main_path_inputs(captured, rec)
+            del rerun
+            phase_filter()
+            cli, cli_captured = phase_cli(tmp)
+        kernels = kernels_on_main_path_inputs(captured, rec, cli,
+                                              cli_captured)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         return 1

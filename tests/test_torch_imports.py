@@ -44,6 +44,10 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "anchored_fusion_tpu_torch.ops.sw_cuda" in mods
     assert "anchored_fusion_tpu_torch.pipeline" in mods
+    for name in ("cli.bulk", "cli.common", "models.filter_cnn",
+                 "models.train", "models.negative", "models.weights",
+                 "io.native", "utils.msgpack_lite", "utils.log"):
+        assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
@@ -54,8 +58,41 @@ def test_port_imports_no_jax():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+_HELP_PROBE = """
+import json, runpy, sys
+sys.argv = ["bulk", "--help"]
+try:
+    runpy.run_module("anchored_fusion_tpu_torch.cli.bulk", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "anchored_fusion_tpu")
+             or m.startswith(("jax.", "jaxlib.", "anchored_fusion_tpu.")))
+print(json.dumps(bad))
+"""
+
+
+def test_bulk_cli_help_imports_no_jax():
+    """``python -m anchored_fusion_tpu_torch.cli.bulk --help`` prints the JAX
+    CLI's flags and loads no JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _HELP_PROBE],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == []
+    from anchored_fusion_tpu.cli.bulk import build_parser as jparser
+    from anchored_fusion_tpu_torch.cli.bulk import build_parser
+    flags = lambda p: sorted(a.dest for a in p._actions)  # noqa: E731
+    assert flags(build_parser()) == flags(jparser())
+    assert "--not_train_filter_model" in proc.stdout
+
+
 @pytest.mark.parametrize("name", ["AlignConfig", "CallConfig",
-                                  "PipelineConfig", "StagePreset"])
+                                  "FilterModelConfig", "PipelineConfig",
+                                  "StagePreset"])
 def test_config_defaults_equal(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
     jf = {f.name: f for f in dataclasses.fields(jc)}
