@@ -17,7 +17,8 @@ import torch
 from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.io.fasta import Reference
 from anchored_fusion_tpu_torch.index.kmer import (
-    KmerIndex, pack_read_kmers_strided, lookup_hits_table, vote_diagonals,
+    KmerIndex, bucket_bits_for, build_shard_index_device,
+    pack_read_kmers_strided, lookup_hits_table, vote_diagonals,
     read_kmer_offsets)
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.align.aligner import (
@@ -56,31 +57,51 @@ class GenomeAligner:
 
     def __init__(self, reference: Reference, cfg: Optional[AlignConfig] = None,
                  kmer: Optional[int] = None, stride: Optional[int] = None,
-                 device="cuda", index: Optional[KmerIndex] = None):
+                 device="cuda", index: Optional[KmerIndex] = None,
+                 device_build: Optional[bool] = None):
         """``index``: a prebuilt index (see state.kmer_index_from_numpy)
-        instead of building one from ``reference``."""
+        instead of building one from ``reference``.  ``device_build``: build
+        the index on ``device`` (build_shard_index_device) instead of on the
+        host; by default past 200,000,000 bp, where the host sort
+        dominates."""
         self.cfg = cfg or AlignConfig()
         self.device = resolve_device(device)
         self.reference = reference
-        if reference.total_length > 2**31 - 2**20:
+        L = reference.total_length
+        if L > 2**31 - 2**20:
             raise ValueError(
-                f"genome is {reference.total_length} bp (> int32 coordinate "
-                "range); the flat engine keeps int32 genome positions")
+                f"genome is {L} bp (> int32 coordinate range); the flat "
+                "engine keeps int32 genome positions")
         self.k = kmer or self.cfg.genome_kmer
         self.index_stride = self.cfg.index_stride
         self.stride = stride or self.cfg.resolved_query_stride()
         self.ref_prepad = REF_PREPAD
+        codes = torch.from_numpy(np.asarray(reference.seq, np.int8)).to(
+            self.device)
         if index is None:
-            index = KmerIndex.build(reference.seq, self.k, self.device,
-                                    stride=self.index_stride)
+            if device_build is None:
+                device_build = L > 200_000_000
+            if device_build:
+                # kb is sized on every window, N-holding ones included
+                m = -(-(L - self.k + 1) // self.index_stride)
+                kb = bucket_bits_for(m, self.k)
+                ks, ps, tb = build_shard_index_device(codes, self.k, kb,
+                                                      self.index_stride)
+                if ks is None:
+                    ks = torch.zeros(1, dtype=torch.int32, device=self.device)
+                index = KmerIndex(k=self.k, kb=kb, table=tb, keys_sorted=ks,
+                                  pos_sorted=ps, ref_len=L)
+            else:
+                index = KmerIndex.build(reference.seq, self.k, self.device,
+                                        stride=self.index_stride)
         elif index.k != self.k:
             raise ValueError(f"index k={index.k} != aligner k={self.k}")
         self.index = index
         # codes are stored PREPADDED (REF_PREPAD each side) so extension can
         # gather windows directly; positions in the index stay genome-frame
-        self.codes = torch.from_numpy(np.pad(
-            np.asarray(reference.seq, np.int8), self.ref_prepad,
-            constant_values=PAD)).to(self.device)
+        pad = torch.full((self.ref_prepad,), PAD, dtype=torch.int8,
+                         device=self.device)
+        self.codes = torch.cat([pad, codes, pad])
 
     @staticmethod
     def _even_width(seqs: np.ndarray) -> np.ndarray:

@@ -73,11 +73,7 @@ class GeneCallResult:
 
 class FusionPipeline:
     """Holds genome-wide state (genome, exon index, k-mer index) across genes,
-    on one device.
-
-    Only the flat genome engine is ported: genomes past the int32 range
-    (the JAX package's XL and sharded engines) raise NotImplementedError.
-    """
+    on one device.  The genome engine follows :func:`genome_engine_kind`."""
 
     def __init__(self, genome: Reference, exon_index: ExonIndex,
                  gene_rows: Sequence[tuple],
@@ -85,7 +81,8 @@ class FusionPipeline:
                  cache_dir: Optional[str] = None,
                  device="cuda",
                  index=None):
-        """``index``: a prebuilt genome KmerIndex (see GenomeAligner)."""
+        """``index``: a prebuilt genome KmerIndex for the flat engine (see
+        GenomeAligner)."""
         from anchored_fusion_tpu_torch.utils.checkpoint import StageCache
         self.cfg = cfg or PipelineConfig()
         self.device = resolve_device(device)
@@ -94,12 +91,29 @@ class FusionPipeline:
         self.gene_rows = list(gene_rows)
         kind = genome_engine_kind(genome.total_length,
                                   self.cfg.align.index_stride)
-        if kind != "flat":
-            raise NotImplementedError(
-                f"genome engine {kind!r} is not ported yet (ROADMAP.md, "
-                "'Modules to port': the XL and sharded engines)")
-        self.genome_aligner = GenomeAligner(genome, self.cfg.align,
-                                            device=self.device, index=index)
+        if index is not None and kind != "flat":
+            raise ValueError(f"a prebuilt index serves only the flat engine, "
+                             f"not {kind!r}")
+        if kind == "xl":
+            # past int32, with strided positions inside it (the hg38
+            # operating point): one merged index, one query per chunk
+            from anchored_fusion_tpu_torch.align.genome_xl import (
+                GenomeAlignerXL)
+            self.genome_aligner = GenomeAlignerXL(genome, self.cfg.align,
+                                                  device=self.device)
+        elif kind == "sharded":
+            # a dense index past int32: the per-shard loop is the capacity
+            # engine
+            from anchored_fusion_tpu_torch.parallel.sharded_genome import (
+                ShardedGenomeAligner)
+            n = -(-genome.total_length // (_INT32_SAFE // 2))
+            self.genome_aligner = ShardedGenomeAligner(
+                genome, n_shards=max(2, int(n)), cfg=self.cfg.align,
+                device=self.device)
+        else:
+            self.genome_aligner = GenomeAligner(genome, self.cfg.align,
+                                                device=self.device,
+                                                index=index)
         self.cache = StageCache(cache_dir)
 
     def call_gene(

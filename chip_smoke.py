@@ -5,10 +5,11 @@
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
 its plain PyTorch version on the card, checks that ``call_gene`` on ``cuda``
-gives the same rows as on ``cpu`` for a small fixture, then drives the main
-path — ``FusionPipeline.call_gene`` on the flat genome engine — at a real
-size: a 100 Mbp genome, a ~7 kb anchor transcript and 1,000,000 read pairs
-of 101 bp.  Each phase prints one JSON line:
+gives the same rows as on ``cpu`` for a small fixture on each genome engine,
+then drives the main path — ``FusionPipeline.call_gene`` on the flat genome
+engine — at a real size: a 100 Mbp genome, a ~7 kb anchor transcript and
+1,000,000 read pairs of 101 bp; and the hg38-scale path on a 3.1 Gbp genome.
+Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
   kernel     registers and spill bytes of every kernel instantiation
@@ -16,10 +17,15 @@ of 101 bp.  Each phase prints one JSON line:
              forward-only with random masks): kernel vs plain equality,
              kernel_ms, plain_ms, bound_ms (and the bound at the plain
              recurrence's 12 operations a cell), share of bound, launches
-  parity     rows and counters of call_gene on cuda == on cpu
+  parity     rows and counters of call_gene on cuda == on cpu, on the flat
+             engine and on the XL and sharded engines (forced)
   main_path  per-stage times, reads/s, peak device memory, kernel launches
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
+  engines    the flat (device index build), XL and sharded engines on the
+             main_path genome at the real tile size: equal records on
+             131,072 reads; the device index build == the host build
+             (20 Mbp)
   filter     the filter model at full width on 4,096 random rows:
              P(class 1) on cuda vs the same weights on cpu (max_abs_diff,
              bound 1e-4), scoring rows/s, training steps/s at batch 256,
@@ -38,12 +44,21 @@ of 101 bp.  Each phase prints one JSON line:
              this process (``bulk.main``) on cuda, with the SW kernel's
              inputs captured, and on cpu: same rows, scores within
              FILTER_TOL
+  xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
+             pairs, the CLI's auto hg38 point: the XL engine (index build,
+             resident and peak bytes, a cold and a warm call, 262,144 reads
+             through GenomeAlignerXL.align with recall, rescue share, a
+             profile and the device programs' times), then the sharded
+             engine (stride 1, k 13, 3 shards); the engineered ANCA--PRTB
+             call must be made at its breakpoint with the partner past int32
+  (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
-             (sw_align_fused, sw_end) with their launches in main_path and
-             in the cli run, and their time, bound and plain time on the
-             main path's own inputs (sw_end, which call_gene does not call,
-             with random masks); sw_align_fused is also held equal to the
-             plain SW on every batch the in-process cli run handed it
+             (sw_align_fused, sw_end) with their launches in main_path, in
+             the cli run and in xl_path, and their time, bound and plain
+             time on the main path's own inputs (sw_end, which call_gene
+             does not call, with random masks); sw_align_fused is also held
+             equal to the plain SW on every batch the in-process cli run and
+             xl_path handed it
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -53,6 +68,7 @@ package beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -224,34 +240,64 @@ def fixture_genome():
                                  np.full((len(names), 2), READ_LEN, np.int32))
 
 
+# The genome engines of the parity phase: (engine class, AlignConfig
+# fields).  'xl' and 'sharded' are forced on the small fixture by lowering
+# the pipeline's int32 limit below its genome, as tests/test_torch_pipeline.py
+# does.
+PARITY_ENGINES = {"flat": ("GenomeAligner", {}),
+                  "xl": ("GenomeAlignerXL", dict(index_stride=2,
+                                                 genome_kmer=11)),
+                  "sharded": ("ShardedGenomeAligner", dict(index_stride=1))}
+
+
 def phase_parity(tmpdir: str):
+    """The engineered-fusion fixture through call_gene on cuda and on cpu,
+    on each genome engine: rows and non-time counters must be equal."""
+    from anchored_fusion_tpu_torch import pipeline as tpipeline
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
-    from anchored_fusion_tpu_torch.config import PipelineConfig
+    from anchored_fusion_tpu_torch.config import AlignConfig, PipelineConfig
     from anchored_fusion_tpu_torch.io.fastq import ReadBatch
     from anchored_fusion_tpu_torch.ops.encode import encode_ascii
-    from anchored_fusion_tpu_torch.pipeline import FusionPipeline
 
     sg, anchor, partner, batch = fixture_genome()
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
-    out = {}
-    for dev in ("cuda", "cpu"):
-        pipe = FusionPipeline(sg.genome, ExonIndex(sg.gtf_dic, inject_loci=False),
-                              sg.gene_rows(),
-                              PipelineConfig(filter_false_positive=False),
-                              device=dev)
-        out[dev] = pipe.call_gene(anchor.name, anchor_codes, ReadBatch(*batch),
-                                  out_prefix=os.path.join(tmpdir, dev))
-    same_rows = out["cuda"].rows == out["cpu"].rows
-    same_counters = (_timeless(out["cuda"].counters)
-                     == _timeless(out["cpu"].counters))
-    fusions = sorted({r["fusion"] for r in out["cuda"].rows})
-    emit({"phase": "parity", "rows_equal": same_rows,
-          "counters_equal": same_counters, "fusions": fusions,
-          "rows": len(out["cuda"].rows)})
-    if not (same_rows and same_counters):
-        raise AssertionError("call_gene on cuda differs from cpu")
-    if f"{anchor.name}--{partner.name}" not in fusions:
-        raise AssertionError(f"fixture fusion not called: {fusions}")
+    safe = tpipeline._INT32_SAFE
+    recs = {}
+    for engine, (cls, align_kw) in PARITY_ENGINES.items():
+        if engine != "flat":
+            tpipeline._INT32_SAFE = sg.genome.total_length - 1
+        try:
+            out = {}
+            for dev in ("cuda", "cpu"):
+                pipe = tpipeline.FusionPipeline(
+                    sg.genome, ExonIndex(sg.gtf_dic, inject_loci=False),
+                    sg.gene_rows(),
+                    PipelineConfig(align=AlignConfig(**align_kw),
+                                   filter_false_positive=False),
+                    device=dev)
+                if type(pipe.genome_aligner).__name__ != cls:
+                    raise AssertionError(f"{engine}: got "
+                                         f"{type(pipe.genome_aligner)}")
+                out[dev] = pipe.call_gene(
+                    anchor.name, anchor_codes, ReadBatch(*batch),
+                    out_prefix=os.path.join(tmpdir, f"{engine}_{dev}"))
+        finally:
+            tpipeline._INT32_SAFE = safe
+        recs[engine] = {
+            "rows_equal": out["cuda"].rows == out["cpu"].rows,
+            "counters_equal": (_timeless(out["cuda"].counters)
+                               == _timeless(out["cpu"].counters)),
+            "fusions": sorted({r["fusion"] for r in out["cuda"].rows}),
+            "rows": len(out["cuda"].rows)}
+    emit({"phase": "parity", **recs["flat"],
+          "engines": {k: v for k, v in recs.items() if k != "flat"}})
+    for engine, rec in recs.items():
+        if not (rec["rows_equal"] and rec["counters_equal"]):
+            raise AssertionError(f"call_gene on cuda differs from cpu "
+                                 f"({engine} engine)")
+        if f"{anchor.name}--{partner.name}" not in rec["fusions"]:
+            raise AssertionError(f"fixture fusion not called ({engine}): "
+                                 f"{rec['fusions']}")
 
 
 def main_path_inputs(genome_bp: int, n_pairs: int, seed: int = 5):
@@ -325,7 +371,7 @@ def capturing_sw(captured: list):
 def phase_main_path(tmpdir: str, device: str = "cuda",
                     genome_bp: int = GENOME_BP, n_pairs: int = N_PAIRS):
     """Drive call_gene once; returns (record, captured SW kernel inputs, a
-    function that repeats the same call)."""
+    function that repeats the same call, the genome)."""
     import torch
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
     from anchored_fusion_tpu_torch.config import PipelineConfig
@@ -393,7 +439,7 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         raise AssertionError("main path launched no SW kernel")
     rerun = lambda: pipe.call_gene(anchor.name, anchor_codes, batch,  # noqa: E731
                                    out_prefix=os.path.join(tmpdir, "again"))
-    return rec, captured, rerun
+    return rec, captured, rerun, genome
 
 
 def phase_profile(rerun, device: str = "cuda", top: int = 8):
@@ -446,13 +492,15 @@ def profiled(fn, device: str = "cuda", top: int = 8):
 
 
 def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
-                                cli_captured) -> list[dict]:
+                                cli_captured, xl: dict) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
     with random validity masks.  The fused entry is also held equal to the
-    plain SW on every batch of the in-process cli run.  The entries of the
-    kernels line, with the launches of main_path and of the cli phase."""
+    plain SW on every batch of the in-process cli run, and ``xl`` holds its
+    check on every batch of xl_path (check_batches).  The entries of the
+    kernels line, with the launches of main_path, of the cli phase and of
+    xl_path."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -470,10 +518,13 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
               "sw_end": []}
     out = []
     for name, recs in cases.items():
-        err = max((r["max_abs_err"] for r in recs + on_cli[name]), default=0)
-        if err or not all(all(r["equal"]) for r in recs + on_cli[name]):
-            raise AssertionError(f"{name} disagrees on main-path or cli "
-                                 "inputs")
+        fused = name == "sw_align_fused"
+        err = max([r["max_abs_err"] for r in recs + on_cli[name]]
+                  + [xl["max_abs_err"] if fused else 0])
+        if err or not all(all(r["equal"]) for r in recs + on_cli[name]) \
+                or (fused and not xl["equal"]):
+            raise AssertionError(f"{name} disagrees on main-path, cli or "
+                                 "xl_path inputs")
         out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
             "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
@@ -483,6 +534,7 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
                             else "sw_end_launches"],
             "cli_launches": cli["sw_launches" if name == "sw_align_fused"
                                 else "sw_end_launches"],
+            "xl_launches": xl["launches"] if fused else xl["end_launches"],
             "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -491,6 +543,7 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "bound_by": "operations", "library_ms": None,
             "main_path_batches": [[r["B"], r["R"], r["W"]] for r in recs],
             "cli_batches": [[r["B"], r["R"], r["W"]] for r in on_cli[name]],
+            "xl_batches": xl["batches"] if fused else [],
         })
     return out
 
@@ -1000,6 +1053,472 @@ def phase_cli(tmpdir: str):
     return rec, captured
 
 
+# ------------------------------------------------------------ genome engines
+
+XL_GBP = 3.1            # bench/hg_e2e.py's genome: hg38's size
+XL_PAIRS = 1_000_000
+XL_ALIGN_READS = 262_144
+XL_CHUNK = 8192         # GenomeAlignerXL.align's chunk
+SHARDED_HITS = 32       # k-mer hit cap of the sharded call that is gated
+CHECK_READS = 131_072
+INDEX_CHECK_BP = 20_000_000
+_COMP = (3, 2, 1, 0, 4, 5)
+
+
+def overlaps_any(intervals, starts, ends):
+    """Per read: overlaps some sorted (start, end) interval (the JAX
+    package's bench/hg_scale.py rule)."""
+    import numpy as np
+    if not len(intervals):
+        return np.zeros(len(starts), bool)
+    idx = np.searchsorted(intervals[:, 0], ends, side="right")
+    prev_end = np.maximum.accumulate(intervals[:, 1])
+    return (idx > 0) & (prev_end[np.clip(idx - 1, 0, None)] > starts)
+
+
+def background_pairs(rng, codes, n: int, avoid):
+    """``n`` pairs drawn as main_path_inputs draws them (a ~200 bp fragment,
+    mate 1 its 5' end forward, mate 2 its 3' end reverse-complemented, 0.1%
+    substitutions), anywhere in ``codes`` but within 2 kb of the ``avoid``
+    (start, end) spans: (n, 2, READ_LEN) int8."""
+    import numpy as np
+    comp = np.asarray(_COMP, np.int8)
+    ar = np.arange(READ_LEN)
+    avoid = np.asarray(sorted(avoid), np.int64)
+    out = np.empty((n, 2, READ_LEN), np.int8)
+    for lo in range(0, n, 1 << 17):
+        m = min(1 << 17, n - lo)
+        ins = np.clip(rng.normal(200, 20, m).astype(np.int64), READ_LEN, 400)
+        start = rng.integers(0, len(codes) - 400, m)
+        bad = overlaps_any(avoid + [-2000, 2000], start, start + ins)
+        while bad.any():
+            start[bad] = rng.integers(0, len(codes) - 400, int(bad.sum()))
+            bad = overlaps_any(avoid + [-2000, 2000], start, start + ins)
+        m1 = codes[start[:, None] + ar]
+        m2 = comp[codes[(start + ins - READ_LEN)[:, None] + ar]][:, ::-1]
+        pair = np.stack([m1, m2], axis=1)
+        err = rng.random(pair.shape) < 0.001
+        pair[err] = (pair[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        out[lo:lo + m] = pair
+    return out
+
+
+def sample_reads(rng, codes, n: int, avoid=(), error_rate: float = 0.005):
+    """``n`` reads of READ_LEN at known starts outside the ``avoid`` spans,
+    odd ones reverse-complemented, with substitutions (bench/hg_scale.py's
+    sample_reads, in bulk): ((n, ROW) int8, true starts, true ends)."""
+    import numpy as np
+    avoid = np.asarray(avoid, np.int64).reshape(-1, 2)
+    avoid = avoid[np.argsort(avoid[:, 0], kind="stable")]
+    start = rng.integers(0, len(codes) - READ_LEN, n)
+    bad = overlaps_any(avoid, start, start + READ_LEN - 1)
+    while bad.any():
+        start[bad] = rng.integers(0, len(codes) - READ_LEN, int(bad.sum()))
+        bad = overlaps_any(avoid, start, start + READ_LEN - 1)
+    r = codes[start[:, None] + np.arange(READ_LEN)]
+    err = rng.random(r.shape) < error_rate
+    r[err] = (r[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    odd = np.arange(n) % 2 == 1
+    r[odd] = np.asarray(_COMP, np.int8)[r[odd]][:, ::-1]
+    reads = np.full((n, ROW), 5, np.int8)
+    reads[:, :READ_LEN] = r
+    return reads, start.astype(np.int64), start + READ_LEN - 1
+
+
+def recall_of(res, t_start, t_end, tol: int = 30):
+    """Per read: the best hit overlaps the true span ±tol."""
+    return (res.mapped & (res.ref_start <= t_end + tol)
+            & (res.ref_end >= t_start - tol))
+
+
+def _nbytes(*tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def phase_engines(genome) -> dict:
+    """The three genome engines against each other at the real tile size,
+    on the main_path genome (100 Mbp, six tiles of 2^24), refinement off,
+    index stride 2, CHECK_READS sampled reads: the flat engine with the
+    device build against XL (ref_start, ref_end, strand, score, matches
+    equal, as tests/test_genome_xl.py requires of JAX) and against the
+    sharded engine with 3 shards (ref_start, ref_end, strand equal, as
+    tests/test_sharded_genome.py requires).  Then on a 20 Mbp genome with N
+    runs, the device index build against the host build: keys and
+    positions of the valid slots, and the table."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.align.genome import GenomeAligner
+    from anchored_fusion_tpu_torch.align.genome_xl import GenomeAlignerXL
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.index.kmer import (
+        build_index_arrays, build_shard_index_device)
+    from anchored_fusion_tpu_torch.parallel.sharded_genome import (
+        ShardedGenomeAligner)
+
+    cfg = AlignConfig(gapped_refine=False, index_stride=2)
+    reads, _, _ = sample_reads(np.random.default_rng(3), genome.seq,
+                               CHECK_READS)
+    engines, build_s, align_s, out = {}, {}, {}, {}
+    for name, make in (
+            ("flat", lambda: GenomeAligner(genome, cfg, device="cuda",
+                                           device_build=True)),
+            ("xl", lambda: GenomeAlignerXL(genome, cfg, device="cuda")),
+            ("sharded", lambda: ShardedGenomeAligner(
+                genome, 3, cfg, device="cuda", device_build=True))):
+        t0 = time.time()
+        engines[name] = make()
+        torch.cuda.synchronize()
+        build_s[name] = time.time() - t0
+        t0 = time.time()
+        out[name] = engines[name].align(reads)
+        align_s[name] = time.time() - t0
+        del engines[name]
+    torch.cuda.empty_cache()
+    a = out["flat"]
+    diff = lambda o, fields: {f: int((getattr(a, f) != getattr(o, f)).sum())  # noqa: E731
+                              for f in fields}
+    xl_diff = diff(out["xl"], ("ref_start", "ref_end", "strand", "score",
+                               "matches"))
+    sh_diff = diff(out["sharded"], ("ref_start", "ref_end", "strand"))
+
+    rng = np.random.default_rng(20)
+    codes = rng.integers(0, 4, INDEX_CHECK_BP, dtype=np.int8)
+    for at in rng.integers(0, INDEX_CHECK_BP - 5000, 20):
+        codes[at:at + int(rng.integers(1, 5000))] = 4
+    t0 = time.time()
+    kv, pos, table, kb = build_index_arrays(codes, 13, stride=1)
+    host_s = time.time() - t0
+    dev = torch.from_numpy(codes).cuda()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ks, ps, tb = build_shard_index_device(dev, 13, kb, 1, keep_keys=True)
+    torch.cuda.synchronize()
+    dev_s = time.time() - t0
+    nv = len(kv)
+    index_equal = {
+        "keys": bool(torch.equal(ks[:nv].cpu(), torch.from_numpy(kv))),
+        "positions": bool(torch.equal(ps[:nv].cpu(), torch.from_numpy(pos))),
+        "table": bool(torch.equal(tb.cpu(), torch.from_numpy(table))),
+        "sentinels": bool((ks[nv:] == 2 ** 31 - 1).all())}
+    del dev, ks, ps, tb
+    rec = {"phase": "engines", "genome_bp": genome.total_length,
+           "reads": CHECK_READS, "index_stride": 2, "gapped_refine": False,
+           "mapped": {k: int(v.mapped.sum()) for k, v in out.items()},
+           "build_s": build_s, "align_s": align_s,
+           "align_reads_per_s": {k: CHECK_READS / v
+                                 for k, v in align_s.items()},
+           "xl_vs_flat_differing": xl_diff,
+           "sharded_vs_flat_differing": sh_diff,
+           "index_check": {"genome_bp": INDEX_CHECK_BP, "k": 13, "kb": kb,
+                           "valid_slots": nv, "slots": len(codes) - 12,
+                           "host_build_s": host_s, "device_build_s": dev_s,
+                           "equal": index_equal}}
+    emit(rec)
+    if any(xl_diff.values()) or any(sh_diff.values()):
+        raise AssertionError("the genome engines disagree at the real tile "
+                             "size")
+    if not all(index_equal.values()):
+        raise AssertionError(f"device index build != host build: "
+                             f"{index_equal}")
+    return rec
+
+
+def _call_record(res, wall_s: float, launches: int, break5: int) -> dict:
+    """One call_gene of xl_path: stage times, rates, the engineered call."""
+    import torch
+    from anchored_fusion_tpu_torch.bench.hg_e2e import call_ok
+    c = res.counters
+    ok, partner_ok = call_ok(res.rows, break5)
+    fus = [r for r in res.rows if r["fusion"] == "ANCA--PRTB"]
+    return {"call_gene_s": wall_s,
+            "stage_s": {k: v for k, v in c.items() if k.startswith("time.")},
+            "anchored_reads_per_s": c["reads"] / max(c["time.anchor_align_s"],
+                                                     1e-9),
+            "call_reads_per_s": c["reads"] / wall_s,
+            "sw_launches": launches,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "counters": _timeless(c),
+            "fusions": sorted({r["fusion"] for r in res.rows}),
+            "called": [{k: r[k] for k in ("anchor_breakpoint", "partner_chrom",
+                                          "partner_breakpoint", "split",
+                                          "spanning")} for r in fus],
+            "call_ok": ok and partner_ok}
+
+
+def _timed_call(pipe, anchor_codes, batch, out_prefix, break5) -> dict:
+    import torch
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = sw_cuda.launches
+    t0 = time.time()
+    res = pipe.call_gene("ANCA", anchor_codes, batch, out_prefix=out_prefix)
+    torch.cuda.synchronize()
+    return _call_record(res, time.time() - t0, sw_cuda.launches - before,
+                        break5)
+
+
+def program_ms(fn) -> dict:
+    """One device program's time after a warm call: ``device_ms``, the busy
+    time of its kernels under torch.profiler, and ``event_ms``, CUDA events
+    around it (median of 5; host launch gaps included)."""
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    fn()
+    busy = profiled(fn)[1]
+    return {"device_ms": busy * 1e3 if busy is not None else None,
+            "event_ms": swb.time_ms(fn, 5)}
+
+
+def xl_programs(ga, codes, reads) -> dict:
+    """The slice's device programs (ROADMAP §2) on XL_CHUNK reads: G+J the
+    XL seed (read k-mer keys, table lookup, two-key vote) at the pass-1 and
+    rescue points, J the extension (tile window gather, Kadane, strand
+    fold); H the device index build of the first 2^28 bases at the XL
+    point."""
+    import torch
+    from anchored_fusion_tpu_torch.align.genome_xl import _xl_extend_core
+    from anchored_fusion_tpu_torch.index.kmer import build_shard_index_device
+    cfg = ga.cfg
+    seqs = ga._prepare(reads[:XL_CHUNK])
+    r = torch.from_numpy(seqs).cuda()
+    offs = ga._offsets(seqs.shape[1])
+    out = {"chunk_reads": XL_CHUNK, "width": int(seqs.shape[1])}
+    for point, tk, mh in (("pass1", cfg.xl_pass1_top_k, cfg.xl_pass1_hits),
+                          ("rescue", cfg.xl_rescue_top_k, cfg.xl_rescue_hits)):
+        out[f"seed_{point}"] = program_ms(
+            lambda: ga._seed(r, offs, tk, mh))  # noqa: B023
+        rc, cc = ga._seed(r, offs, tk, mh)
+        out[f"extend_{point}"] = program_ms(
+            lambda: _xl_extend_core(r, ga.tiles, rc, cc, tk,  # noqa: B023
+                                    cfg.match_score, cfg.mismatch_penalty,
+                                    ga.halo))
+    dev = torch.from_numpy(codes[:1 << 28]).cuda()
+    out["index_build_2e28_bases"] = program_ms(
+        lambda: build_shard_index_device(dev, ga.k, ga.k, ga.index_stride,
+                                         keep_keys=True))
+    del dev
+    return out
+
+
+def sharded_programs(ga, reads) -> dict:
+    """K on XL_CHUNK reads: one shard's best-hit program (seed, extend,
+    fold), and every shard with the reduce."""
+    import torch
+    from anchored_fusion_tpu_torch.parallel import sharded_genome as shg
+    cfg = ga.cfg
+    r = torch.from_numpy(reads[:XL_CHUNK]).cuda()
+    offs = ga._offsets(r.shape[1])
+    kw = ga._kw(cfg.top_diagonals, cfg.max_hits_per_kmer)
+    return {"chunk_reads": XL_CHUNK, "n_shards": ga.n_shards,
+            "max_hits_per_kmer": cfg.max_hits_per_kmer,
+            "one_shard": program_ms(
+                lambda: shg._shard_best(r, offs, ga.shards[0], **kw)),
+            "all_shards_and_reduce": program_ms(
+                lambda: shg._reduce_shard_stack(
+                    [shg._shard_best(r, offs, sh, **kw)
+                     for sh in ga.shards]))}
+
+
+def cli_align_config(genome_bp: int, *flags):
+    """AlignConfig as the bulk CLI builds it for this genome and flags."""
+    from anchored_fusion_tpu_torch.cli import bulk, common
+    args = bulk.build_parser().parse_args(
+        ["--file_anchored_cds", "-", "--file_ref_seq", "-",
+         "--file_ref_ann", "-", *flags])
+    return common.align_config_for(args, genome_bp)
+
+
+def phase_xl_path(tmpdir: str) -> dict:
+    """FusionPipeline on bench/hg_e2e.py's 3.1 Gbp genome (10% segmental
+    duplications, seed 7; ANCA at 0.323·L, PRTB at 0.806·L, past int32)
+    with XL_PAIRS pairs: the harness's fusion and wild-type pairs plus
+    background pairs from the genome.  The CLI's auto hg38 point (stride 8,
+    k 14, two-pass, profile robust), filter off.  The XL engine: index build,
+    resident bytes, a cold and a warm call_gene (each must call ANCA--PRTB
+    at its breakpoint ±5 with the partner on chrS), then XL_ALIGN_READS
+    reads from outside the duplications through GenomeAlignerXL.align
+    (reads/s, recall, rescue share, a profiled warm pass, the device
+    programs).  Then the sharded engine on the same genome (stride 1, k 13:
+    3 shards): a call_gene and the same reads at the CLI's hit cap (8 of the
+    ~15 positions a k-mer has in a shard: recorded, not gated), then at
+    SHARDED_HITS, where it must make the same call.  Every SW kernel batch
+    of the phase is captured; returns (record, captured batches,
+    launches)."""
+    import gc
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
+    from anchored_fusion_tpu_torch.bench import hg_e2e
+    from anchored_fusion_tpu_torch.config import PipelineConfig
+    from anchored_fusion_tpu_torch.io.fastq import ReadBatch
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    from anchored_fusion_tpu_torch.pipeline import (
+        FusionPipeline, genome_engine_kind)
+
+    t0 = time.time()
+    w = hg_e2e.make_world(XL_GBP, seed=7)
+    L, codes, break5 = w["L"], w["codes"], w["break5"]
+    genes = [(g.exons[0][0] - 1, g.exons[-1][1]) for g in w["genes"].values()]
+    n_h = len(w["names"])
+    seq = np.full((XL_PAIRS, 2, ROW), 5, np.int8)
+    for i, (x, y) in enumerate(zip(w["r1"], w["r2"])):
+        seq[i] = (encode_ascii(x, length=ROW), encode_ascii(y, length=ROW))
+    seq[n_h:, :, :READ_LEN] = background_pairs(w["rng"], codes,
+                                               XL_PAIRS - n_h, genes)
+    batch = ReadBatch(w["names"] + [f"BG_{i}" for i in range(XL_PAIRS - n_h)],
+                      seq, np.full((XL_PAIRS, 2), READ_LEN, np.int32))
+    avoid = np.concatenate([w["repeats"], np.asarray(genes, np.int64)])
+    reads, t_s, t_e = sample_reads(w["rng"], codes, XL_ALIGN_READS, avoid)
+    inputs_s = time.time() - t0
+    anchor_codes = encode_ascii(w["anchor_tx"])
+    exons = ExonIndex(w["gtf"], inject_loci=False)
+
+    rec = {"phase": "xl_path", "genome_bp": L, "repeat_intervals":
+           len(w["repeats"]), "read_pairs": XL_PAIRS, "harness_pairs": n_h,
+           "reads": 2 * XL_PAIRS, "inputs_s": inputs_s,
+           "expected": "ANCA--PRTB", "expected_breakpoint": break5,
+           "partner_locus": w["genes"]["PRTB"].exons[0][0]}
+    captured = []
+    with capturing_sw(captured):
+        align = cli_align_config(L)
+        cfg = PipelineConfig(align=align, filter_false_positive=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        pipe = FusionPipeline(w["genome"], exons, w["rows"], cfg,
+                              device="cuda")
+        torch.cuda.synchronize()
+        ga = pipe.genome_aligner
+        xl = {"engine": genome_engine_kind(L, align.index_stride),
+              "class": type(ga).__name__,
+              "config": {k: getattr(align, k) for k in (
+                  "index_stride", "genome_kmer", "xl_two_pass",
+                  "xl_pass1_hits", "xl_pass1_top_k", "xl_rescue_hits",
+                  "xl_rescue_top_k", "gapped_refine")},
+              "index_build_s": time.time() - t0,
+              "resident_bytes": {"table": _nbytes(ga.table),
+                                 "pos_div": _nbytes(ga.pos_div),
+                                 "tiles": _nbytes(ga.tiles)},
+              "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
+        for which in ("cold", "warm"):
+            xl[which] = _timed_call(pipe, anchor_codes, batch,
+                                    os.path.join(tmpdir, f"xl_{which}"),
+                                    break5)
+        before = sw_cuda.launches
+        t0 = time.time()
+        res = ga.align(reads)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        ok = recall_of(res, t_s, t_e)
+        wall, busy, events, top = profiled(lambda: ga.align(reads))
+        xl["xl_align"] = {
+            "reads": XL_ALIGN_READS, "wall_s": dt,
+            "reads_per_s": XL_ALIGN_READS / dt,
+            "recall_unique": float(ok.mean()), "mapped": int(res.mapped.sum()),
+            "rescue_share": ga.last_rescued / XL_ALIGN_READS,
+            "sw_launches": sw_cuda.launches - before,
+            "profile": {"wall_s": wall, "device_busy_s": busy,
+                        "device_idle_share": (1.0 - busy / wall
+                                              if busy is not None else None),
+                        "device_events": events, "top_device_ms": top}}
+        xl["programs_ms"] = xl_programs(ga, codes, reads)
+        del pipe, ga, res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        align = cli_align_config(L, "--index_stride", "1", "--genome_kmer",
+                                 "13")
+        cfg = PipelineConfig(align=align, filter_false_positive=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        pipe = FusionPipeline(w["genome"], exons, w["rows"], cfg,
+                              device="cuda")
+        torch.cuda.synchronize()
+        ga = pipe.genome_aligner
+        sh = {"engine": genome_engine_kind(L, align.index_stride),
+              "class": type(ga).__name__, "n_shards": ga.n_shards,
+              "index_build_s": time.time() - t0,
+              "resident_bytes": _nbytes(*[t for index, seq_t in ga.shards
+                                          for t in (index.table,
+                                                    index.keys_sorted,
+                                                    index.pos_sorted,
+                                                    seq_t)]),
+              "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
+        sh["programs_ms"] = sharded_programs(ga, reads)
+        # at the CLI's point (H = 8) a k-mer keeps its 8 earliest positions
+        # of ~15 in a shard, so reads late in a shard go unplaced; the call
+        # is then made, and gated, at SHARDED_HITS
+        for tag in ("cli_point", "wide_hits"):
+            if tag == "wide_hits":
+                ga.cfg = dataclasses.replace(ga.cfg,
+                                             max_hits_per_kmer=SHARDED_HITS)
+            sh[tag] = _timed_call(pipe, anchor_codes, batch,
+                                  os.path.join(tmpdir, f"sharded_{tag}"),
+                                  break5)
+            before = sw_cuda.launches
+            t0 = time.time()
+            res = ga.align(reads)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            ok = recall_of(res, t_s, t_e)
+            frac = (t_s - ga.host_offs[np.searchsorted(
+                ga.host_offs, t_s, side="right") - 1]) / (L / ga.n_shards)
+            sh[tag].update(
+                max_hits_per_kmer=ga.cfg.max_hits_per_kmer,
+                align={"reads": XL_ALIGN_READS, "wall_s": dt,
+                       "reads_per_s": XL_ALIGN_READS / dt,
+                       "recall_unique": float(ok.mean()),
+                       # recall by the read's place in its shard, in fifths
+                       "recall_by_shard_fifth": [
+                           float(ok[(frac >= q / 5) & (frac < (q + 1) / 5)]
+                                 .mean()) for q in range(5)],
+                       "sw_launches": sw_cuda.launches - before})
+        launches = sw_cuda.launches
+        end_launches = sw_cuda.end_launches
+        del pipe, ga, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec.update(xl=xl, sharded=sh, sw_launches=launches,
+               sw_end_launches=end_launches)
+    emit(rec)
+    problems = []
+    if xl["engine"] != "xl" or xl["class"] != "GenomeAlignerXL":
+        problems.append(f"XL engine not chosen: {xl['engine']}")
+    if sh["engine"] != "sharded" or sh["n_shards"] != 3:
+        problems.append(f"sharded engine not chosen: {sh['engine']}")
+    for name, call in (("xl cold", xl["cold"]), ("xl warm", xl["warm"]),
+                       ("sharded", sh["wide_hits"])):
+        if not call["call_ok"]:
+            problems.append(f"{name}: ANCA--PRTB not called at {break5}")
+    for name, rate in (("xl", xl["xl_align"]),
+                       ("sharded", sh["wide_hits"]["align"])):
+        if rate["recall_unique"] < 0.99:
+            problems.append(f"{name} recall {rate['recall_unique']}")
+    if not launches or launches != len(captured):
+        problems.append(f"{launches} SW launches, {len(captured)} captured")
+    if problems:
+        raise AssertionError("xl_path: " + "; ".join(problems))
+    return rec, captured, launches
+
+
+def check_batches(captured) -> dict:
+    """The fused SW kernel against its plain version on every captured
+    batch (launches made here are not counted on any path)."""
+    import torch
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+    from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain
+    err, equal = 0, True
+    for reads, wins in captured:
+        got = sw_cuda.sw_align_fused_cuda(reads, wins)
+        want = sw_align_fused_plain(reads, wins)
+        equal = equal and bool(torch.equal(got, want))
+        err = max(err, int((got - want).abs().max()) if got.numel() else 0)
+    return {"batches": [[*r.shape, w.shape[1]] for r, w in captured],
+            "max_abs_err": err, "equal": equal}
+
+
 def main() -> int:
     try:
         import torch
@@ -1017,25 +1536,42 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import tempfile
 
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.time()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.time() - t0, 3)
+
     try:
         smi = nvidia_smi_line()
         kind = torch.cuda.get_device_name(0)
         emit({"phase": "device", "nvidia_smi": smi, "name": kind,
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        phase_kernel()
+        run("kernel", phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
-            phase_parity(tmp)
-            rec, captured, rerun = phase_main_path(tmp)
-            phase_profile(rerun)
+            run("parity", phase_parity, tmp)
+            rec, captured, rerun, genome = run("main_path", phase_main_path,
+                                               tmp)
+            run("profile", phase_profile, rerun)
             del rerun
-            phase_filter()
-            cli, cli_captured = phase_cli(tmp)
+            run("engines", phase_engines, genome)
+            del genome
+            run("filter", phase_filter)
+            cli, cli_captured = run("cli", phase_cli, tmp)
+            xl, xl_captured, xl_launches = run("xl_path", phase_xl_path, tmp)
+        xl_check = {**check_batches(xl_captured), "launches": xl_launches,
+                    "end_launches": xl["sw_end_launches"]}
         kernels = kernels_on_main_path_inputs(captured, rec, cli,
-                                              cli_captured)
+                                              cli_captured, xl_check)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
+        emit({"phase_seconds": seconds})
         return 1
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -347,6 +347,39 @@ def test_bulk_cli_filter_off_byte_identical(cli_inputs, tmp_path, capsys,
     assert f"time.call:{anchor.name}_s" in stats
 
 
+def test_bulk_cli_forced_xl_byte_identical(cli_inputs, tmp_path, capsys,
+                                           monkeypatch):
+    """The bulk CLI on the XL engine (both pipelines' int32 limit lowered
+    below the genome), filter off: the hg38 flags reach the engine and the
+    prediction files are byte-identical to the JAX CLI's."""
+    import anchored_fusion_tpu.pipeline as jpipeline
+    import anchored_fusion_tpu_torch.pipeline as tpipeline
+    from anchored_fusion_tpu_torch.align.genome_xl import GenomeAlignerXL
+    from anchored_fusion_tpu_torch.io.fasta import read_fasta
+
+    d, _, anchor, partner, break5 = cli_inputs
+    L = read_fasta(str(d / "genome.fa")).total_length
+    for mod in (jpipeline, tpipeline):
+        monkeypatch.setattr(mod, "_INT32_SAFE", L - 1)
+    cfgs = []
+    init = GenomeAlignerXL.__init__
+    monkeypatch.setattr(GenomeAlignerXL, "__init__", lambda self, ref, cfg,
+                        **kw: cfgs.append(cfg) or init(self, ref, cfg, **kw))
+    out = _run_both(cli_inputs, tmp_path, capsys, monkeypatch,
+                    ["--not_filter_false_positive", "--index_stride", "2",
+                     "--genome_kmer", "11", "--xl_two_pass", "1",
+                     "--xl_profile", "balanced"])
+    (jrc, jrows, jfiles, _), (rc, rows, files, _) = out["jax"], out["port"]
+    assert [(c.index_stride, c.genome_kmer, c.xl_two_pass, c.xl_pass1_hits,
+             c.xl_pass1_top_k, c.xl_rescue_hits, c.xl_rescue_top_k)
+            for c in cfgs] == [(2, 11, True, 4, 2, 16, 8)]
+    assert rc == jrc == 0
+    assert rows == jrows
+    assert any(r.startswith(f"{anchor.name}--{partner.name}\t{break5}\t")
+               for r in rows), rows
+    assert files == jfiles
+
+
 def _tsv(text):
     return list(csv.reader(io.StringIO(text), delimiter="\t"))
 

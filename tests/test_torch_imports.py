@@ -46,7 +46,9 @@ def test_port_imports_no_jax():
     assert "anchored_fusion_tpu_torch.pipeline" in mods
     for name in ("cli.bulk", "cli.common", "models.filter_cnn",
                  "models.train", "models.negative", "models.weights",
-                 "io.native", "utils.msgpack_lite", "utils.log"):
+                 "io.native", "utils.msgpack_lite", "utils.log",
+                 "align.genome_xl", "parallel.sharded_genome",
+                 "bench.hg_scale", "bench.hg_e2e"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

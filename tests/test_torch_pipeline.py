@@ -12,12 +12,14 @@ import pytest
 from anchored_fusion_tpu.annotate.exon_index import ExonIndex as JExonIndex
 from anchored_fusion_tpu.bench.simulate import (
     make_synthetic_genome, fuse_transcripts, simulate_pairs, coverage_to_pairs)
+from anchored_fusion_tpu.config import AlignConfig as JAlignConfig
 from anchored_fusion_tpu.config import PipelineConfig as JPipelineConfig
 from anchored_fusion_tpu.io.fastq import ReadBatch as JReadBatch
 from anchored_fusion_tpu.ops.encode import encode_ascii
 from anchored_fusion_tpu.pipeline import FusionPipeline as JFusionPipeline
 from anchored_fusion_tpu_torch.annotate.exon_index import (
     ExonIndex as TExonIndex)
+from anchored_fusion_tpu_torch.config import AlignConfig as TAlignConfig
 from anchored_fusion_tpu_torch.config import PipelineConfig as TPipelineConfig
 from anchored_fusion_tpu_torch.io.fasta import Reference as TReference
 from anchored_fusion_tpu_torch.io.fastq import ReadBatch as TReadBatch
@@ -66,11 +68,15 @@ def wildtype_reads(sg, anchor, seed=13):
                                   name_prefix="WT"))
 
 
-def run_both(sg, anchor, batch, tmp_path):
+def run_both(sg, anchor, batch, tmp_path, align_kw=None, engine=None):
+    """call_gene in both packages; ``align_kw`` sets AlignConfig fields and
+    ``engine`` names the genome engine the port must have picked."""
+    align_kw = align_kw or {}
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
     jpipe = JFusionPipeline(sg.genome, JExonIndex(sg.gtf_dic, inject_loci=False),
                             sg.gene_rows(),
-                            JPipelineConfig(filter_false_positive=False))
+                            JPipelineConfig(align=JAlignConfig(**align_kw),
+                                            filter_false_positive=False))
     want = jpipe.call_gene(anchor.name, anchor_codes, JReadBatch(*batch),
                            out_prefix=str(tmp_path / "jax"))
     g = sg.genome
@@ -78,8 +84,12 @@ def run_both(sg, anchor, batch, tmp_path):
                          g.seq.copy())
     tpipe = TFusionPipeline(tgenome, TExonIndex(sg.gtf_dic, inject_loci=False),
                             sg.gene_rows(),
-                            TPipelineConfig(filter_false_positive=False),
+                            TPipelineConfig(align=TAlignConfig(**align_kw),
+                                            filter_false_positive=False),
                             device="cpu")
+    if engine is not None:
+        assert type(tpipe.genome_aligner).__name__ == engine
+        assert type(jpipe.genome_aligner).__name__ == engine
     got = tpipe.call_gene(anchor.name, anchor_codes, TReadBatch(*batch),
                           out_prefix=str(tmp_path / "torch"))
     assert got.rows == want.rows
@@ -112,7 +122,48 @@ def test_call_gene_wildtype_matches_jax(synth, tmp_path):
     assert got.counters["anchor_mapped"] > 0
 
 
-def test_unported_engines_raise(synth):
+def force_engine(monkeypatch, genome_bp: int):
+    """Lower the int32 limit of both pipelines below ``genome_bp``, so a
+    small genome takes the engines of genomes past int32: 'xl' at index
+    stride 2, 'sharded' at stride 1."""
+    import anchored_fusion_tpu.pipeline as jpipeline
+    import anchored_fusion_tpu_torch.pipeline as tpipeline
+    for mod in (jpipeline, tpipeline):
+        monkeypatch.setattr(mod, "_INT32_SAFE", genome_bp - 1)
+
+
+FORCED = {"xl": ("GenomeAlignerXL", dict(index_stride=2, genome_kmer=11)),
+          "sharded": ("ShardedGenomeAligner", dict(index_stride=1))}
+
+
+@pytest.mark.parametrize("engine", sorted(FORCED))
+@pytest.mark.parametrize("fixture", ["fusion", "wildtype"])
+def test_call_gene_forced_engine_matches_jax(synth, tmp_path, monkeypatch,
+                                             engine, fixture):
+    sg, anchor, partner, decoy = synth
+    force_engine(monkeypatch, sg.genome.total_length)
+    cls, align_kw = FORCED[engine]
+    if fixture == "fusion":
+        batch, break5 = fusion_reads(sg, anchor, partner, decoy)
+    else:
+        batch = wildtype_reads(sg, anchor)
+    got = run_both(sg, anchor, batch, tmp_path, align_kw, engine=cls)
+    if fixture == "fusion":
+        row = max((r for r in got.rows
+                   if r["fusion"] == f"{anchor.name}--{partner.name}"),
+                  key=lambda r: r["split"])
+        assert row["anchor_breakpoint"] == break5
+    else:
+        assert got.rows == []
+
+
+def test_unported_engines_raise(synth, monkeypatch):
+    """Formerly: genomes past int32 raised NotImplementedError.  Both
+    engines are ported now: the pipeline picks them by the JAX rule and no
+    longer raises (the engines are stubbed: the genome is 2^31 bp of one
+    repeated code)."""
+    import anchored_fusion_tpu_torch.align.genome_xl as txl
+    import anchored_fusion_tpu_torch.parallel.sharded_genome as tsh
     from anchored_fusion_tpu_torch.pipeline import genome_engine_kind
     assert genome_engine_kind(3_100_000_000, 8) == "xl"
     assert genome_engine_kind(3_100_000_000, 1) == "sharded"
@@ -123,6 +174,14 @@ def test_unported_engines_raise(synth):
                      np.zeros(0, np.int8))
     big.seq = np.lib.stride_tricks.as_strided(np.zeros(1, np.int8),
                                               (2**31,), (0,))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFusionPipeline(big, TExonIndex(sg.gtf_dic, inject_loci=False),
-                        sg.gene_rows(), device="cpu")
+    built = []
+    stub = lambda name: (lambda genome, *a, **kw: built.append(  # noqa: E731
+        (name, kw.get("n_shards"), kw["device"])) or name)
+    monkeypatch.setattr(txl, "GenomeAlignerXL", stub("xl"))
+    monkeypatch.setattr(tsh, "ShardedGenomeAligner", stub("sharded"))
+    for stride, want in ((2, ("xl", None)), (1, ("sharded", 3))):
+        cfg = TPipelineConfig(align=TAlignConfig(index_stride=stride))
+        pipe = TFusionPipeline(big, TExonIndex(sg.gtf_dic, inject_loci=False),
+                               sg.gene_rows(), cfg, device="cpu")
+        assert pipe.genome_aligner == want[0]
+        assert built[-1][:2] == want
