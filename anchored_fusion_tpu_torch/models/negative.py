@@ -22,9 +22,9 @@ pair filters are preserved:
   * linear-genome rejection at ~0.8x modal read length (:1517-1522)
 
 The multi-hit alignment runs on the genome aligner's device; the pair
-filters and row extraction are host code, as in the JAX package.  Mining
-from an external SAM/BAM (the JAX package's ``mine_negative_junctions_sam``)
-is not ported yet.
+filters and row extraction are host code, as in the JAX package.
+:func:`mine_negative_junctions_sam` runs the same filters over the hits of
+an external SAM/BAM instead, on the host only.
 """
 
 from __future__ import annotations
@@ -247,4 +247,35 @@ def mine_negative_junctions(
         hits = genome_aligner.align_multi(sub, min_score=20, min_seg_len=20,
                                           top_k=pair_depth)
         state.process(hits, (sub != 5).sum(axis=1), chunk_lo)
+    return state.emit(window)
+
+
+def mine_negative_junctions_sam(
+    sam_path: str,
+    genome: Reference,
+    index: ExonIndex,
+    gene_names: Sequence[str],
+    homo_map: Optional[Dict[str, Set[str]]] = None,
+    clip_slack: int = 5,
+    min_locus_distance: int = 10_000,
+    window: int = 100,
+    max_rows: int = 0,
+) -> List[str]:
+    """Mine negative junction rows from an EXTERNAL whole-genome alignment.
+
+    The reference's filter setup consumes a pre-existing BAM and mines
+    SA-tagged chimeras from it (functions.py:1425-1441); this is the
+    equivalent ingestion path: ``sam_path`` may be SAM text or a BAM/BGZF
+    archive (sniffed by magic), parsed into MultiHits
+    (io/sam.py::multihits_from_sam — primary, secondary and supplementary
+    records, deal_cigar-normalized), then the same pair-filter/linearity
+    core as :func:`mine_negative_junctions` runs over it, so users with
+    existing alignments skip the re-alignment.
+    """
+    from anchored_fusion_tpu_torch.io.sam import multihits_from_sam
+    _names, read_lens, hits = multihits_from_sam(sam_path, genome)
+    state = _MiningState(genome, index, {g.upper() for g in gene_names},
+                         homo_map or {}, clip_slack, min_locus_distance,
+                         max_rows)
+    state.process(hits, read_lens, 0)
     return state.emit(window)

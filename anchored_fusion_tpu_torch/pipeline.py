@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import traceback
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +30,8 @@ from anchored_fusion_tpu_torch.io.fasta import Reference
 from anchored_fusion_tpu_torch.io.fastq import ReadBatch
 from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
 from anchored_fusion_tpu_torch.annotate.homolog import find_homolog_genes
-from anchored_fusion_tpu_torch.align.aligner import align_to_reference, classify_clips
+from anchored_fusion_tpu_torch.align.aligner import (
+    AlignmentResult, align_to_reference, classify_clips)
 from anchored_fusion_tpu_torch.align.genome import GenomeAligner
 from anchored_fusion_tpu_torch.call.breakpoints import (
     extract_split_reads, cluster_split_reads, oriented_sequences)
@@ -41,6 +43,7 @@ from anchored_fusion_tpu_torch.call.candidates import (
     build_candidate_regions, find_anchored_split, find_candidate_genes)
 from anchored_fusion_tpu_torch.call.report import write_final_fusion
 from anchored_fusion_tpu_torch.config import FINE_BLOCK_PRESET
+from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 
@@ -135,6 +138,71 @@ class FusionPipeline:
         return self._call_stages(gene_name, anchor_codes, reads, res,
                                  out_prefix, scores, score_fn, homo_genes,
                                  t0=t0, align_s=time.time() - t0)
+
+    def call_gene_cells(
+        self,
+        gene_name: str,
+        anchor_codes: np.ndarray,
+        cell_reads,  # Dict[str, ReadBatch] (insertion-ordered)
+        out_prefix_for=None,   # cell -> out_prefix (or None)
+        score_fn=None,
+        failures: Optional[list] = None,
+    ) -> Dict[str, GeneCallResult]:
+        """Per-cell calling with the cells as ONE alignment batch.
+
+        The reference's single-cell script aligns each cell serially
+        (Anchored_Fusion_singlecell.py:205); here every cell's reads join one
+        anchored-alignment batch, padded with PAD to the widest cell's row
+        width, and the per-cell host stages consume row slices of the shared
+        result.  The anchored aligner's diagonals and 128-wide block top-k
+        depend on that width, so a cell narrower than the widest may align
+        differently than alone.  The homolog mask is computed for the first
+        cell that succeeds and reused (it only depends on the anchor and the
+        genome).  With ``failures`` (a list), a cell whose host stages raise
+        is recorded and skipped instead of sinking the cohort.
+        """
+        t0 = time.time()
+        cells = list(cell_reads.items())
+        if not cells:
+            return {}
+        R = max(rb.max_len for _, rb in cells)
+        parts = []
+        for _, rb in cells:
+            s = rb.seq.reshape(rb.n_pairs * 2, rb.max_len)
+            if rb.max_len < R:
+                s = np.concatenate(
+                    [s, np.full((s.shape[0], R - rb.max_len), PAD, np.int8)],
+                    axis=1)
+            parts.append(s)
+        offs = np.cumsum([0] + [p.shape[0] for p in parts])
+        res_all = align_to_reference(np.concatenate(parts), anchor_codes,
+                                     self.cfg.align, chunk=self.cfg.read_batch,
+                                     device=self.device)
+        align_s = time.time() - t0
+        out: Dict[str, GeneCallResult] = {}
+        homo = None
+        for i, (cell, rb) in enumerate(cells):
+            sl = slice(offs[i], offs[i + 1])
+            res_c = AlignmentResult(**{f.name: getattr(res_all, f.name)[sl]
+                                       for f in dataclasses.fields(res_all)})
+            prefix = out_prefix_for(cell) if out_prefix_for else None
+            try:
+                r = self._call_stages(
+                    gene_name, anchor_codes, rb, res_c, prefix, None,
+                    score_fn, homo, t0=time.time(),
+                    align_s=align_s * (offs[i + 1] - offs[i])
+                    / max(int(offs[-1]), 1))
+            except Exception as e:  # noqa: BLE001 - per-cell isolation
+                if failures is None:
+                    raise
+                failures.append({"gene": f"{gene_name}:{cell}",
+                                 "error": repr(e),
+                                 "traceback": traceback.format_exc(),
+                                 "attempts": 1})
+                continue
+            homo = r.homo_genes
+            out[cell] = r
+        return out
 
     def _call_stages(
         self,

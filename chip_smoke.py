@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout, holds each against
-its plain PyTorch version on the card, checks that ``call_gene`` on ``cuda``
-gives the same rows as on ``cpu`` for a small fixture on each genome engine,
-then drives the main path — ``FusionPipeline.call_gene`` on the flat genome
-engine — at a real size: a 100 Mbp genome, a ~7 kb anchor transcript and
-1,000,000 read pairs of 101 bp; and the hg38-scale path on a 3.1 Gbp genome.
-Each phase prints one JSON line:
+its plain PyTorch version on the card, checks that ``call_gene`` and
+``call_gene_cells`` on ``cuda`` give the same rows as on ``cpu`` for small
+fixtures, then drives the main path — ``FusionPipeline.call_gene`` on the
+flat genome engine — at a real size: a 100 Mbp genome, a ~7 kb anchor
+transcript and 1,000,000 read pairs of 101 bp; the single-cell path on the
+same genome (96 cells, 4,800,000 pairs) and through its CLI; and the
+hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
   kernel     registers and spill bytes of every kernel instantiation
@@ -18,10 +19,20 @@ Each phase prints one JSON line:
              kernel_ms, plain_ms, bound_ms (and the bound at the plain
              recurrence's 12 operations a cell), share of bound, launches
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
-             engine and on the XL and sharded engines (forced)
+             engine and on the XL and sharded engines (forced); the same for
+             call_gene_cells on the cells of tests/test_pipeline_synthetic.py
+             (one of them in 160-wide rows): sc_rows_equal,
+             sc_counters_equal
   main_path  per-stage times, reads/s, peak device memory, kernel launches
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
+  sc_path    call_gene_cells on the main_path pipeline: 96 cells of 50,000
+             pairs (12 with the engineered fusion; half in 128-wide rows,
+             half in 160-wide rows) as one anchored batch: reads/s, the
+             batch's anchor_align_s, the sum and max of the per-cell stage
+             times, peak device memory, SW launches and batches, failures;
+             the fusion called in exactly its 12 cells; 4 cells of the
+             160-wide half equal to call_gene alone; a profiled warm repeat
   engines    the flat (device index build), XL and sharded engines on the
              main_path genome at the real tile size: equal records on
              131,072 reads; the device index build == the host build
@@ -44,6 +55,11 @@ Each phase prints one JSON line:
              this process (``bulk.main``) on cuda, with the SW kernel's
              inputs captured, and on cpu: same rows, scores within
              FILTER_TOL
+  sc_cli     ``python -m anchored_fusion_tpu_torch.cli.sc`` on the cli
+             genome with 24 cells of 5,000 pairs (.fastq.gz, 6 with the
+             fusion), filter off and then on with the cli phase's model: rc,
+             run_stats.json stage seconds, the fusion's aggregate row (6
+             cells, by name) and its per-cell Natural_score
   xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
@@ -54,11 +70,11 @@ Each phase prints one JSON line:
   (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path, in
-             the cli run and in xl_path, and their time, bound and plain
-             time on the main path's own inputs (sw_end, which call_gene
-             does not call, with random masks); sw_align_fused is also held
-             equal to the plain SW on every batch the in-process cli run and
-             xl_path handed it
+             the cli run, in xl_path and in sc_path, and their time, bound
+             and plain time on the main path's own inputs (sw_end, which
+             call_gene does not call, with random masks); sw_align_fused is
+             also held equal to the plain SW on every batch the in-process
+             cli run, xl_path and sc_path handed it
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -196,16 +212,13 @@ def _timeless(counters: dict) -> dict:
             if k != "wall_s" and not k.startswith("time.")}
 
 
-def engineered_pairs(sg, rng, n_exons: int):
-    """Read pairs of an engineered fusion, as in the synthetic fixture of
+def engineered_transcripts(sg, n_exons: int):
+    """The engineered fusion of the synthetic fixture of
     tests/test_pipeline_synthetic.py: the first two '+' genes fused after
-    ``n_exons`` anchor exons (less 100 bp) at 40x, and anchor, partner and
-    decoy wild type at 20x.  Returns (anchor, partner, decoy, anchor
-    breakpoint, names, (n, 2, ROW) int8 codes)."""
-    import numpy as np
-    from anchored_fusion_tpu_torch.bench.simulate import (
-        fuse_transcripts, simulate_pairs, coverage_to_pairs)
-    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    ``n_exons`` anchor exons (less 100 bp).  Returns (anchor, partner,
+    decoy, anchor breakpoint, [(transcript, coverage, name prefix)]: the
+    fusion at 40x, anchor, partner and decoy wild type at 20x)."""
+    from anchored_fusion_tpu_torch.bench.simulate import fuse_transcripts
     plus = [g for g in sg.genes.values() if g.strand == "+"]
     anchor, partner = plus[0], plus[1]
     decoy = [g for g in sg.genes.values()
@@ -213,10 +226,23 @@ def engineered_pairs(sg, rng, n_exons: int):
     tx_a = anchor.transcript(sg.genome)
     break5 = sum(e - s + 1 for s, e in anchor.exons[:n_exons]) - 100
     fusion = fuse_transcripts(tx_a, partner.transcript(sg.genome), break5, 60)
+    return anchor, partner, decoy, break5, [
+        (fusion, 40, "FUS"), (tx_a, 20, "WTA"),
+        (partner.transcript(sg.genome), 20, "WTP"),
+        (decoy.transcript(sg.genome), 20, "WTD")]
+
+
+def engineered_pairs(sg, rng, n_exons: int):
+    """Read pairs of engineered_transcripts from ``simulate_pairs``.
+    Returns (anchor, partner, decoy, anchor breakpoint, names, (n, 2, ROW)
+    int8 codes)."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.bench.simulate import (
+        simulate_pairs, coverage_to_pairs)
+    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    anchor, partner, decoy, break5, txs = engineered_transcripts(sg, n_exons)
     names, r1, r2 = [], [], []
-    for tx, cov, pre in ((fusion, 40, "FUS"), (tx_a, 20, "WTA"),
-                         (partner.transcript(sg.genome), 20, "WTP"),
-                         (decoy.transcript(sg.genome), 20, "WTD")):
+    for tx, cov, pre in txs:
         nm, a, b = simulate_pairs(rng, tx, coverage_to_pairs(len(tx), cov),
                                   name_prefix=pre)
         names += nm
@@ -226,6 +252,36 @@ def engineered_pairs(sg, rng, n_exons: int):
                                 encode_ascii(y, length=ROW)])
                       for x, y in zip(r1, r2)])
     return anchor, partner, decoy, break5, names, codes
+
+
+def cell_pairs(rng, txs, fusion: bool, prefix: str):
+    """One cell's pairs of engineered_transcripts' ``txs`` (the fusion only
+    when ``fusion``), drawn in bulk as ``simulate_pairs`` draws them one by
+    one (insert ~N(200, 20) clipped to [READ_LEN, transcript], uniform
+    start, mate 2 reverse-complemented, 0.1% substitutions).  Returns
+    (names, (n, 2, READ_LEN) int8 codes)."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.bench.simulate import coverage_to_pairs
+    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    comp = np.asarray(_COMP, np.int8)
+    ar = np.arange(READ_LEN)
+    names, parts = [], []
+    for tx, cov, pre in txs:
+        if pre == "FUS" and not fusion:
+            continue
+        codes = encode_ascii(tx)
+        n = coverage_to_pairs(len(tx), cov)
+        ins = np.clip(rng.normal(200, 20, n).astype(np.int64), READ_LEN,
+                      len(tx))
+        start = (rng.random(n) * (len(tx) - ins + 1)).astype(np.int64)
+        pair = np.stack([codes[start[:, None] + ar],
+                         comp[codes[(start + ins - READ_LEN)[:, None] + ar]]
+                         [:, ::-1]], axis=1)
+        err = rng.random(pair.shape) < 0.001
+        pair[err] = (pair[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        parts.append(pair)
+        names += [f"{prefix}{pre}_{k}" for k in range(n)]
+    return names, np.concatenate(parts)
 
 
 def fixture_genome():
@@ -289,8 +345,14 @@ def phase_parity(tmpdir: str):
                                == _timeless(out["cpu"].counters)),
             "fusions": sorted({r["fusion"] for r in out["cuda"].rows}),
             "rows": len(out["cuda"].rows)}
-    emit({"phase": "parity", **recs["flat"],
+    sc = sc_parity(tmpdir, sg, anchor, partner, anchor_codes)
+    emit({"phase": "parity", **recs["flat"], **sc,
           "engines": {k: v for k, v in recs.items() if k != "flat"}})
+    if not (sc["sc_rows_equal"] and sc["sc_counters_equal"]):
+        raise AssertionError("call_gene_cells on cuda differs from cpu")
+    if not sc["sc_fusion_cells"]:
+        raise AssertionError("call_gene_cells called the fixture fusion in "
+                             "no cell")
     for engine, rec in recs.items():
         if not (rec["rows_equal"] and rec["counters_equal"]):
             raise AssertionError(f"call_gene on cuda differs from cpu "
@@ -298,6 +360,59 @@ def phase_parity(tmpdir: str):
         if f"{anchor.name}--{partner.name}" not in rec["fusions"]:
             raise AssertionError(f"fixture fusion not called ({engine}): "
                                  f"{rec['fusions']}")
+
+
+def sc_parity(tmpdir: str, sg, anchor, partner, anchor_codes) -> dict:
+    """The cells of tests/test_pipeline_synthetic.py's
+    test_call_gene_cells_matches_serial (60, 60 and 40 fusion pairs, seeds
+    1-3; cellC in 160-wide rows, so the one batch is padded to 160) through
+    call_gene_cells on the flat engine, on cuda and on cpu."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
+    from anchored_fusion_tpu_torch.bench.simulate import (
+        fuse_transcripts, simulate_pairs)
+    from anchored_fusion_tpu_torch.config import PipelineConfig
+    from anchored_fusion_tpu_torch.io.fastq import ReadBatch
+    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    from anchored_fusion_tpu_torch.pipeline import FusionPipeline
+
+    tx_a = anchor.transcript(sg.genome)
+    break5 = sum(e - s + 1 for s, e in anchor.exons[:2]) - 100
+    fusion = fuse_transcripts(tx_a, partner.transcript(sg.genome), break5, 60)
+    cells = {}
+    for cell, n, seed, width in (("cellA", 60, 1, ROW), ("cellB", 60, 2, ROW),
+                                 ("cellC", 40, 3, SC_WIDE)):
+        names, r1, r2 = simulate_pairs(np.random.default_rng(seed), fusion, n,
+                                       name_prefix=f"C{seed}")
+        seq = np.stack([np.stack([encode_ascii(x, length=width),
+                                  encode_ascii(y, length=width)])
+                        for x, y in zip(r1, r2)])
+        cells[cell] = (names, seq, np.full((n, 2), READ_LEN, np.int32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pipe = FusionPipeline(sg.genome, ExonIndex(sg.gtf_dic,
+                                                   inject_loci=False),
+                              sg.gene_rows(),
+                              PipelineConfig(filter_false_positive=False),
+                              device=dev)
+        out[dev] = pipe.call_gene_cells(
+            anchor.name, anchor_codes,
+            {c: ReadBatch(*a) for c, a in cells.items()},
+            out_prefix_for=lambda c, dev=dev: os.path.join(tmpdir,
+                                                           f"sc_{dev}_{c}"))
+    got, want = out["cuda"], out["cpu"]
+    expected = f"{anchor.name}--{partner.name}"
+    return {
+        "sc_cells": list(got),
+        "sc_rows_equal": (list(got) == list(want) == list(cells)
+                          and all(got[c].rows == want[c].rows for c in got)),
+        "sc_counters_equal": all(_timeless(got[c].counters)
+                                 == _timeless(want[c].counters)
+                                 for c in got if c in want),
+        "sc_fusion_cells": [c for c, r in got.items()
+                            if any(x["fusion"] == expected and
+                                   x["anchor_breakpoint"] == break5
+                                   for x in r.rows)]}
 
 
 def main_path_inputs(genome_bp: int, n_pairs: int, seed: int = 5):
@@ -371,7 +486,9 @@ def capturing_sw(captured: list):
 def phase_main_path(tmpdir: str, device: str = "cuda",
                     genome_bp: int = GENOME_BP, n_pairs: int = N_PAIRS):
     """Drive call_gene once; returns (record, captured SW kernel inputs, a
-    function that repeats the same call, the genome)."""
+    function that repeats the same call, the world: the pipeline, its
+    genome and synthetic genes, the anchor, partner and decoy genes, the
+    anchor breakpoint and the anchor's codes)."""
     import torch
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
     from anchored_fusion_tpu_torch.config import PipelineConfig
@@ -439,7 +556,10 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         raise AssertionError("main path launched no SW kernel")
     rerun = lambda: pipe.call_gene(anchor.name, anchor_codes, batch,  # noqa: E731
                                    out_prefix=os.path.join(tmpdir, "again"))
-    return rec, captured, rerun, genome
+    world = {"pipe": pipe, "genome": genome, "sg": sg, "anchor": anchor,
+             "partner": partner, "decoy": decoy, "break5": break5,
+             "anchor_codes": anchor_codes}
+    return rec, captured, rerun, world
 
 
 def phase_profile(rerun, device: str = "cuda", top: int = 8):
@@ -491,16 +611,189 @@ def profiled(fn, device: str = "cuda", top: int = 8):
             [{"name": k[:96], "ms": v[0], "count": v[1]} for k, v in kernels])
 
 
+# sc_path: one plate of a full-length single-cell protocol (Smart-seq2) at
+# ~1/10-1/40 of a real cell's depth; every SC_FUSION_EVERY-th cell carries
+# the fusion, and the second half of the cells comes in SC_WIDE-wide rows
+SC_CELLS = 96
+SC_PAIRS = 50_000
+SC_FUSION_EVERY = 8
+SC_WIDE = 160
+SC_SERIAL = 2           # fusion and wild-type cells held against call_gene
+
+
+def plate(rng, sg, n_exons: int, codes, avoid, n_cells: int,
+          pairs_per_cell: int, fusion_every: int):
+    """One plate of cells on ``sg``'s genes: each cell has the anchor,
+    partner and decoy wild types at 20x (cell_pairs), every
+    ``fusion_every``-th cell also the engineered fusion at 40x, and
+    background pairs from ``codes`` away from the ``avoid`` spans
+    (background_pairs) up to ``pairs_per_cell``.  Returns [(cell, has the
+    fusion, names, (pairs_per_cell, 2, READ_LEN) int8)]."""
+    import numpy as np
+    txs = engineered_transcripts(sg, n_exons)[4]
+    parts = []
+    for i in range(n_cells):
+        fus = i % fusion_every == 0
+        parts.append((f"cell{i:02d}", fus,
+                      *cell_pairs(rng, txs, fus, f"c{i}_")))
+    bg = background_pairs(rng, codes,
+                          sum(pairs_per_cell - len(p[2]) for p in parts),
+                          avoid)
+    out, at = [], 0
+    for cell, fus, names, reads in parts:
+        m = pairs_per_cell - len(names)
+        out.append((cell, fus, names + [f"BG_{k}" for k in range(m)],
+                    np.concatenate([reads, bg[at:at + m]])))
+        at += m
+    return out
+
+
+def sc_cells_inputs(world: dict, n_cells: int, pairs_per_cell: int,
+                    seed: int = 9):
+    """A plate on the main_path genome (SC_FUSION_EVERY), cells 0 .. n/2-1
+    in ROW-wide rows and the rest in SC_WIDE-wide rows.  Returns ({cell:
+    ReadBatch}, the fusion cells)."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.io.fastq import ReadBatch
+
+    sg = world["sg"]
+    cells, fusion_cells = {}, []
+    for i, (cell, fus, names, reads) in enumerate(plate(
+            np.random.default_rng(seed), sg, 5, world["genome"].seq,
+            [(0, sg.genome.total_length)], n_cells, pairs_per_cell,
+            SC_FUSION_EVERY)):
+        width = ROW if i < n_cells // 2 else SC_WIDE
+        seq = np.full((pairs_per_cell, 2, width), 5, np.int8)
+        seq[:, :, :READ_LEN] = reads
+        cells[cell] = ReadBatch(names, seq, np.full((pairs_per_cell, 2),
+                                                    READ_LEN, np.int32))
+        if fus:
+            fusion_cells.append(cell)
+    return cells, fusion_cells
+
+
+def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
+                  n_cells: int = SC_CELLS, pairs_per_cell: int = SC_PAIRS):
+    """FusionPipeline.call_gene_cells on the main_path pipeline (its genome
+    and prebuilt flat index, default AlignConfig with gapped refinement,
+    filter off): ``n_cells`` cells of ``pairs_per_cell`` pairs in one
+    anchored-alignment batch padded to SC_WIDE, then each cell's host
+    stages.  The engineered fusion must be called at its breakpoint in
+    exactly the fusion cells, no decoy in any; SC_SERIAL fusion and
+    SC_SERIAL wild-type cells of the SC_WIDE half, called alone with
+    call_gene (so at the batch's width), must give the batched rows.  Then
+    a profiled warm repeat.  Every SW kernel batch of the first call is
+    captured; returns (record, captured batches, launches)."""
+    import torch
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    cuda = device.startswith("cuda")
+    t0 = time.time()
+    cells, fusion_cells = sc_cells_inputs(world, n_cells, pairs_per_cell)
+    inputs_s = time.time() - t0
+    pipe, anchor = world["pipe"], world["anchor"]
+    codes, break5 = world["anchor_codes"], world["break5"]
+    out = os.path.join(tmpdir, "sc")
+    os.makedirs(out, exist_ok=True)
+    failures, captured = [], []
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with capturing_sw(captured):
+        t0 = time.time()
+        res = pipe.call_gene_cells(
+            anchor.name, codes, cells,
+            out_prefix_for=lambda c: os.path.join(out, c), failures=failures)
+        if cuda:
+            torch.cuda.synchronize()
+        call_s = time.time() - t0
+        launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    expected = f"{anchor.name}--{world['partner'].name}"
+    called = [c for c, r in res.items()
+              if any(x["fusion"] == expected
+                     and x["anchor_breakpoint"] == break5 for x in r.rows)]
+    wt_hits = [c for c, r in res.items() if c not in fusion_cells
+               and any(x["fusion"] == expected for x in r.rows)]
+    fusions = sorted({x["fusion"] for r in res.values() for x in r.rows})
+    counters = [r.counters for r in res.values()]
+    stages = sorted(k for k in (counters[0] if counters else {})
+                    if k.startswith("time.") and k != "time.anchor_align_s")
+    reads = sum(c["reads"] for c in counters)
+    align_s = sum(c["time.anchor_align_s"] for c in counters)
+    homo = next(iter(res.values())).homo_genes if res else None
+    wide = list(cells)[n_cells // 2:]
+    check = ([c for c in wide if c in fusion_cells][:SC_SERIAL]
+             + [c for c in wide if c not in fusion_cells][:SC_SERIAL])
+    serial = {}
+    for c in check:
+        r = pipe.call_gene(anchor.name, codes, cells[c],
+                           out_prefix=os.path.join(out, "serial_" + c),
+                           homo_genes=homo)
+        serial[c] = c in res and r.rows == res[c].rows
+    wall, busy, events, top = profiled(
+        lambda: pipe.call_gene_cells(
+            anchor.name, codes, cells,
+            out_prefix_for=lambda c: os.path.join(out, "again_" + c)),
+        device)
+    rec = {"phase": "sc_path", "device": device,
+           "genome_bp": world["genome"].total_length, "cells": n_cells,
+           "pairs_per_cell": pairs_per_cell,
+           "read_pairs": sum(rb.n_pairs for rb in cells.values()),
+           "reads": reads,
+           "row_widths": {str(w): sum(rb.max_len == w for rb in cells.values())
+                          for w in (ROW, SC_WIDE)},
+           "fusion_cells": fusion_cells, "inputs_s": inputs_s,
+           "call_gene_cells_s": call_s,
+           "anchored_reads_per_s": reads / max(align_s, 1e-9),
+           "call_reads_per_s": reads / call_s,
+           "anchor_align_s": align_s,
+           "cell_stage_s_sum": {k: sum(c[k] for c in counters)
+                                for k in stages},
+           "cell_stage_s_max": {k: max(c[k] for c in counters)
+                                for k in stages},
+           "peak_device_bytes": peak,
+           "sw_launches": launches, "sw_end_launches": end_launches,
+           "sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
+           "failures": [{k: f[k] for k in ("gene", "error")}
+                        for f in failures],
+           "called_cells": called, "fusions": fusions,
+           "serial_rows_equal": serial,
+           "profile": {"wall_s": wall, "device_busy_s": busy,
+                       "device_idle_share": (1.0 - busy / wall
+                                             if busy is not None else None),
+                       "device_events": events, "top_device_ms": top}}
+    emit(rec)
+    problems = []
+    if failures:
+        problems.append(f"{len(failures)} cells failed")
+    if sorted(called) != sorted(fusion_cells) or wt_hits:
+        problems.append(f"{expected} at {break5} called in {called}, "
+                        f"expected {fusion_cells}; in wild-type cells "
+                        f"{wt_hits}")
+    if any(world["decoy"].name in f for f in fusions):
+        problems.append(f"decoy called: {fusions}")
+    if len(serial) != 2 * SC_SERIAL or not all(serial.values()):
+        problems.append(f"serial call_gene differs: {serial}")
+    if cuda and (not launches or launches != len(captured)):
+        problems.append(f"{launches} SW launches, {len(captured)} captured")
+    if problems:
+        raise AssertionError("sc_path: " + "; ".join(problems))
+    return rec, captured, launches
+
+
 def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
-                                cli_captured, xl: dict) -> list[dict]:
+                                cli_captured, xl: dict,
+                                sc: dict) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
     with random validity masks.  The fused entry is also held equal to the
-    plain SW on every batch of the in-process cli run, and ``xl`` holds its
-    check on every batch of xl_path (check_batches).  The entries of the
-    kernels line, with the launches of main_path, of the cli phase and of
-    xl_path."""
+    plain SW on every batch of the in-process cli run, and ``xl`` and
+    ``sc`` hold its check on every batch of xl_path and of sc_path
+    (check_batches).  The entries of the kernels line, with the launches of
+    main_path, of the cli phase, of xl_path and of sc_path."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -520,11 +813,12 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
     for name, recs in cases.items():
         fused = name == "sw_align_fused"
         err = max([r["max_abs_err"] for r in recs + on_cli[name]]
-                  + [xl["max_abs_err"] if fused else 0])
+                  + [xl["max_abs_err"] if fused else 0,
+                     sc["max_abs_err"] if fused else 0])
         if err or not all(all(r["equal"]) for r in recs + on_cli[name]) \
-                or (fused and not xl["equal"]):
-            raise AssertionError(f"{name} disagrees on main-path, cli or "
-                                 "xl_path inputs")
+                or (fused and not (xl["equal"] and sc["equal"])):
+            raise AssertionError(f"{name} disagrees on main-path, cli, "
+                                 "xl_path or sc_path inputs")
         out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
             "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
@@ -535,6 +829,7 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "cli_launches": cli["sw_launches" if name == "sw_align_fused"
                                 else "sw_end_launches"],
             "xl_launches": xl["launches"] if fused else xl["end_launches"],
+            "sc_launches": sc["launches"] if fused else sc["end_launches"],
             "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -544,6 +839,7 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "main_path_batches": [[r["B"], r["R"], r["W"]] for r in recs],
             "cli_batches": [[r["B"], r["R"], r["W"]] for r in on_cli[name]],
             "xl_batches": xl["batches"] if fused else [],
+            "sc_batches": sc["batches"] if fused else [],
         })
     return out
 
@@ -837,7 +1133,8 @@ def cli_inputs(d: str, seed: int = 17) -> dict:
                 paths["anchor"])
     with open(paths["names"], "w") as fh:
         fh.write(anchor.name + "\n")
-    return {"paths": paths, "anchor": anchor.name, "partner": partner.name,
+    return {"paths": paths, "sg": sg, "anchor": anchor.name,
+            "partner": partner.name,
             "break5": break5, "genome_bp": int(len(g)), "genes": n_genes,
             "read_pairs": int(len(names)), "artifact_pairs": n_artifacts,
             "artifact_gene_pairs": len(pairs)}
@@ -938,7 +1235,8 @@ def phase_cli(tmpdir: str):
     scores.  The config-2 run once more in this process, on cuda with the SW
     kernel's inputs captured and on cpu, must give them too.  Fails if the
     filter turned itself off or the C codec did not decode the FASTQ files.
-    Returns (record, the SW batches of the in-process cuda run)."""
+    Returns (record, the SW batches of the in-process cuda run, the
+    inputs)."""
     from anchored_fusion_tpu_torch.config import FilterModelConfig
     from anchored_fusion_tpu_torch.io import native
     from anchored_fusion_tpu_torch.io.fastq import _read_raw
@@ -1050,7 +1348,121 @@ def phase_cli(tmpdir: str):
                         f"{rec['rerun_sw_launches']}")
     if problems:
         raise AssertionError("cli phase: " + "; ".join(problems))
-    return rec, captured
+    return rec, captured, inp
+
+
+SC_CLI_CELLS = 24
+SC_CLI_PAIRS = 5_000
+SC_CLI_FUSION_EVERY = 4
+
+
+def phase_sc_cli(tmpdir: str, inp: dict) -> dict:
+    """``python -m anchored_fusion_tpu_torch.cli.sc`` in a subprocess on
+    the cli phase's genome and GTF: SC_CLI_CELLS cells of SC_CLI_PAIRS
+    pairs written as .fastq.gz with bench/simulate.py's writers (anchor,
+    partner and decoy wild types at 20x in every cell, the engineered fusion
+    at 40x in every SC_CLI_FUSION_EVERY-th, background away from the
+    genes), once with --not_filter_false_positive and once with the filter
+    on the cli phase's saved model (--not_train_filter_model).  Each run must
+    exit 0 and aggregate the fusion at its breakpoint over exactly the
+    fusion cells; the filter-on run must score each of their rows."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.bench.simulate import write_fastq_pair
+
+    d = os.path.join(tmpdir, "sc_cli")
+    cells_dir = os.path.join(d, "cells")
+    os.makedirs(cells_dir, exist_ok=True)
+    t0 = time.time()
+    sg = inp["sg"]
+    fusion_cells = []
+    for cell, fus, names, reads in plate(
+            np.random.default_rng(23), sg, 3, sg.genome.seq,
+            [(x.exons[0][0] - 1, x.exons[-1][1]) for x in sg.genes.values()],
+            SC_CLI_CELLS, SC_CLI_PAIRS, SC_CLI_FUSION_EVERY):
+        write_fastq_pair(os.path.join(cells_dir, f"{cell}_1.fastq.gz"),
+                         os.path.join(cells_dir, f"{cell}_2.fastq.gz"),
+                         names, _codes_to_strs(reads[:, 0]),
+                         _codes_to_strs(reads[:, 1]))
+        if fus:
+            fusion_cells.append(cell)
+    inputs_s = time.time() - t0
+    p = inp["paths"]
+    argv = ["--file_anchored_cds", p["anchor"], "--gene_names", p["names"],
+            "--fastq_dir", cells_dir, "--file_ref_seq", p["genome"],
+            "--file_ref_ann", p["gtf"]]
+    model = os.path.join(tmpdir, "cli", "train", "model_dir", "model.msgpack")
+    run_dir = os.path.join(tmpdir, "cli", "cwd")
+    gene, where = inp["anchor"], f"{inp['anchor']}:{inp['break5']}"
+    expected = f"{gene}--{inp['partner']}"
+    runs, problems = {}, []
+    for tag, extra in (("filter_off", ["--not_filter_false_positive"]),
+                       ("filter_on", ["--not_train_filter_model",
+                                      "--model_file", model])):
+        out = os.path.join(d, tag)
+        cmd = [sys.executable, "-m", f"{PKG}.cli.sc", *argv,
+               "--out_folder", out, *extra]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=run_dir, capture_output=True,
+                              text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=HERE))
+        wall = time.time() - t0
+        with open(out + ".log", "w") as fh:
+            fh.write(proc.stdout + "\n--- stderr\n" + proc.stderr)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+        stats = {}
+        if os.path.exists(os.path.join(out, "run_stats.json")):
+            with open(os.path.join(out, "run_stats.json")) as fh:
+                stats = json.load(fh)["stats"]
+        agg, scores = None, {}
+        gene_dir = os.path.join(out, gene)
+        path = os.path.join(gene_dir,
+                            f"{gene}_fusion_gene_cell_predictions_abridged.txt")
+        if os.path.exists(path):
+            with open(path) as fh:
+                rows = [ln.split("\t") for ln in fh.read().splitlines()]
+            hit = [r for r in rows[1:] if r[0] == expected and r[2] == where]
+            agg = hit[0] if hit else None
+        for cell in fusion_cells:
+            path = os.path.join(gene_dir, "work_dir", cell,
+                                f"{gene}_fusion_predictions_abridged.txt")
+            if not os.path.exists(path):
+                continue
+            with open(path) as fh:
+                rows = [ln.split("\t") for ln in fh.read().splitlines()]
+            if rows and "Natural_score" in rows[0]:
+                col = rows[0].index("Natural_score")
+                scores[cell] = [float(r[col]) for r in rows[1:]
+                                if r[0] == expected and r[2] == where]
+        runs[tag] = {
+            "rc": proc.returncode, "wall_s": wall,
+            "stage_s": {k: v for k, v in stats.items()
+                        if k.startswith(("time.", "rate."))},
+            "sw_launches": stats.get("kernel_launches", {}).get(
+                "sw_align_fused"),
+            "failures": {k: len(v) for k, v in stats.items()
+                         if k.startswith("failures.")},
+            "aggregate_row": agg, "fusion_cell_scores": scores}
+        if proc.returncode != 0:
+            problems.append(f"{tag}: rc {proc.returncode}")
+        if (agg is None or agg[7] != str(len(fusion_cells))
+                or agg[8].split(";") != fusion_cells):
+            problems.append(f"{tag}: aggregate row {agg}")
+        if tag == "filter_on" and (
+                sorted(scores) != fusion_cells
+                or not all(scores.values())
+                or any(m in proc.stdout for m in ("not performing filter",
+                                                  "filter disabled"))):
+            problems.append(f"filter_on: scores {scores}")
+    rec = {"phase": "sc_cli", "device": "cuda", "genome_bp": inp["genome_bp"],
+           "cells": SC_CLI_CELLS, "pairs_per_cell": SC_CLI_PAIRS,
+           "fusion_cells": fusion_cells, "inputs_s": inputs_s,
+           "expected": expected, "expected_breakpoint": inp["break5"],
+           **runs}
+    emit(rec)
+    if problems:
+        raise AssertionError("sc_cli: " + "; ".join(problems))
+    return rec
 
 
 # ------------------------------------------------------------ genome engines
@@ -1534,6 +1946,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import gc
     import tempfile
 
     seconds = {}
@@ -1554,19 +1967,30 @@ def main() -> int:
         run("kernel", phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
             run("parity", phase_parity, tmp)
-            rec, captured, rerun, genome = run("main_path", phase_main_path,
-                                               tmp)
+            rec, captured, rerun, world = run("main_path", phase_main_path,
+                                              tmp)
             run("profile", phase_profile, rerun)
             del rerun
+            sc, sc_captured, sc_launches = run("sc_path", phase_sc_path, tmp,
+                                               world)
+            genome = world["genome"]
+            del world
+            gc.collect()
+            torch.cuda.empty_cache()
             run("engines", phase_engines, genome)
             del genome
             run("filter", phase_filter)
-            cli, cli_captured = run("cli", phase_cli, tmp)
+            cli, cli_captured, cli_inp = run("cli", phase_cli, tmp)
+            run("sc_cli", phase_sc_cli, tmp, cli_inp)
+            del cli_inp
             xl, xl_captured, xl_launches = run("xl_path", phase_xl_path, tmp)
         xl_check = {**check_batches(xl_captured), "launches": xl_launches,
                     "end_launches": xl["sw_end_launches"]}
+        sc_check = {**check_batches(sc_captured), "launches": sc_launches,
+                    "end_launches": sc["sw_end_launches"]}
         kernels = kernels_on_main_path_inputs(captured, rec, cli,
-                                              cli_captured, xl_check)
+                                              cli_captured, xl_check,
+                                              sc_check)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})

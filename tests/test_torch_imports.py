@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
                  "models.train", "models.negative", "models.weights",
                  "io.native", "utils.msgpack_lite", "utils.log",
                  "align.genome_xl", "parallel.sharded_genome",
-                 "bench.hg_scale", "bench.hg_e2e"):
+                 "bench.hg_scale", "bench.hg_e2e", "cli.sc", "io.sam",
+                 "io.bam", "models.positive"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -62,9 +63,10 @@ def test_port_imports_no_jax():
 
 _HELP_PROBE = """
 import json, runpy, sys
-sys.argv = ["bulk", "--help"]
+sys.argv = [sys.argv[1], "--help"]
 try:
-    runpy.run_module("anchored_fusion_tpu_torch.cli.bulk", run_name="__main__")
+    runpy.run_module("anchored_fusion_tpu_torch.cli." + sys.argv[0],
+                     run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
@@ -74,22 +76,32 @@ print(json.dumps(bad))
 """
 
 
-def test_bulk_cli_help_imports_no_jax():
-    """``python -m anchored_fusion_tpu_torch.cli.bulk --help`` prints the JAX
-    CLI's flags and loads no JAX."""
+def _check_cli_help(name: str):
+    """``python -m anchored_fusion_tpu_torch.cli.<name> --help`` prints the
+    JAX CLI's flags and loads no JAX."""
+    import importlib
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", _HELP_PROBE],
+    proc = subprocess.run([sys.executable, "-c", _HELP_PROBE, name],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == []
-    from anchored_fusion_tpu.cli.bulk import build_parser as jparser
-    from anchored_fusion_tpu_torch.cli.bulk import build_parser
+    jparser = importlib.import_module(f"anchored_fusion_tpu.cli.{name}")
+    tparser = importlib.import_module(f"anchored_fusion_tpu_torch.cli.{name}")
     flags = lambda p: sorted(a.dest for a in p._actions)  # noqa: E731
-    assert flags(build_parser()) == flags(jparser())
+    assert flags(tparser.build_parser()) == flags(jparser.build_parser())
     assert "--not_train_filter_model" in proc.stdout
+    return proc.stdout
+
+
+def test_bulk_cli_help_imports_no_jax():
+    _check_cli_help("bulk")
+
+
+def test_sc_cli_help_imports_no_jax():
+    assert "--fastq_dir" in _check_cli_help("sc")
 
 
 @pytest.mark.parametrize("name", ["AlignConfig", "CallConfig",
