@@ -428,6 +428,7 @@ def align_to_reference(
     top_k: Optional[int] = None,
     chunk: int = 8192,
     device="cuda",
+    mesh=None,
 ) -> AlignmentResult:
     """Align a batch of encoded reads against one reference array.
 
@@ -435,7 +436,19 @@ def align_to_reference(
     memory, applies the stage thresholds, runs the gapped refinement when
     ``cfg.gapped_refine`` is set, and returns numpy struct-of-arrays.
     Results do not depend on ``chunk``.
+
+    With ``mesh`` (parallel/mesh.py) each dp rank aligns and refines its
+    rows of the batch on its ``device`` against the replicated reference,
+    and every rank gets all records, all-gathered in read order: equal to
+    the one-device result, since a record depends only on its read.
     """
+    if mesh is not None:
+        from anchored_fusion_tpu_torch.parallel.collectives import map_rows
+        seqs = np.asarray(seqs, dtype=np.int8)
+        return map_rows(mesh, seqs if seqs.ndim == 2 else seqs[None],
+                        lambda s: align_to_reference(
+                            s, ref_codes, cfg, min_score, min_identity,
+                            min_seg_len, top_k, chunk, device))
     cfg = cfg or AlignConfig()
     device = resolve_device(device)
     if min_score is None:

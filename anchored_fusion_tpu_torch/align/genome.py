@@ -58,13 +58,16 @@ class GenomeAligner:
     def __init__(self, reference: Reference, cfg: Optional[AlignConfig] = None,
                  kmer: Optional[int] = None, stride: Optional[int] = None,
                  device="cuda", index: Optional[KmerIndex] = None,
-                 device_build: Optional[bool] = None):
+                 device_build: Optional[bool] = None, mesh=None):
         """``index``: a prebuilt index (see state.kmer_index_from_numpy)
         instead of building one from ``reference``.  ``device_build``: build
         the index on ``device`` (build_shard_index_device) instead of on the
         host; by default past 200,000,000 bp, where the host sort
-        dominates."""
+        dominates.  ``mesh`` (parallel/mesh.py): every rank holds the index
+        on its ``device`` and ``align`` splits each batch over the mesh's dp
+        axis, its records all-gathered in read order."""
         self.cfg = cfg or AlignConfig()
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.reference = reference
         L = reference.total_length
@@ -125,6 +128,17 @@ class GenomeAligner:
               top_k: Optional[int] = None, max_hits: Optional[int] = None,
               chunk: int = 8192):
         """Best-hit genome alignment; an AlignmentResult per read."""
+        if self.mesh is not None:
+            from anchored_fusion_tpu_torch.parallel.collectives import map_rows
+            return map_rows(self.mesh, self._even_width(seqs),
+                            lambda s: self._align(s, min_score, min_identity,
+                                                  min_seg_len, top_k,
+                                                  max_hits, chunk))
+        return self._align(seqs, min_score, min_identity, min_seg_len, top_k,
+                           max_hits, chunk)
+
+    def _align(self, seqs, min_score, min_identity, min_seg_len, top_k,
+               max_hits, chunk):
         cfg = self.cfg
         if min_score is None:
             min_score = cfg.min_align_score

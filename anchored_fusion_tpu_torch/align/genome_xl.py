@@ -20,6 +20,10 @@ table is the sum of the slice tables, and each slice slot lands at
 ``iota + A_s[key]`` for a per-bucket offset vector ``A_s``, written in place
 into one preallocated tensor.
 
+With a mesh the index is replicated on every rank and each read batch is
+split over ALL mesh axes (dp x mp ranks); the records are all-gathered in
+read order (parallel/collectives.py).
+
 Every record equals the JAX package's (``anchored_fusion_tpu/align/
 genome_xl.py``).  Its compile-time workarounds (shape buckets, warm-up
 programs, separate seed and extend programs, donation, nibble packing) are
@@ -224,19 +228,18 @@ def _xl_multi_extend_core(reads, tiles, rows_c, cols_c, match: int,
 
 
 class GenomeAlignerXL:
-    """One-device genome aligner with a merged stride-scaled index.
+    """Genome aligner with a merged stride-scaled index.
 
     Takes GenomeAligner's place past the int32 coordinate range; needs
-    ``L / cfg.index_stride`` inside int32 (hg38 needs stride >= 2).
+    ``L / cfg.index_stride`` inside int32 (hg38 needs stride >= 2).  With
+    ``mesh`` every rank holds the whole index on its ``device`` and aligns
+    its share of each batch.
     """
 
     def __init__(self, reference: Reference, cfg: Optional[AlignConfig] = None,
                  tile_c: int = TILE_C, halo: int = TILE_HALO,
                  verbose: bool = False, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GenomeAlignerXL(mesh=...): the multi-GPU engines are not "
-                "ported yet (ROADMAP.md, 'Multi-GPU')")
+        self.mesh = mesh
         self.cfg = cfg or AlignConfig()
         self.device = resolve_device(device)
         self.reference = reference
@@ -303,8 +306,22 @@ class GenomeAlignerXL:
     def _align_raw(self, seqs: np.ndarray, top_k: int, max_hits: int,
                    chunk: int) -> np.ndarray:
         """Chunked seed and extend of ``seqs`` at one (top_k, max_hits)
-        operating point: (10, B) host rows of XL_FIELDS."""
+        operating point: (10, B) host rows of XL_FIELDS.  With a mesh each
+        rank takes its rows and the rows are all-gathered."""
+        if self.mesh is not None:
+            from anchored_fusion_tpu_torch.parallel.collectives import (
+                map_rows_array)
+            return map_rows_array(
+                self.mesh, seqs,
+                lambda s: self._align_raw_local(s, top_k, max_hits, chunk),
+                axes=(0, 1))
+        return self._align_raw_local(seqs, top_k, max_hits, chunk)
+
+    def _align_raw_local(self, seqs: np.ndarray, top_k: int, max_hits: int,
+                         chunk: int) -> np.ndarray:
         cfg = self.cfg
+        if not len(seqs):
+            return np.zeros((len(XL_FIELDS), 0), np.int32)
         offsets = self._offsets(seqs.shape[1])
         outs = []
         for lo in range(0, seqs.shape[0], chunk):
@@ -385,13 +402,19 @@ class GenomeAlignerXL:
                     top_k: int = 8, max_hits: Optional[int] = None,
                     chunk: int = 4096) -> MultiHits:
         """All-hits genome alignment.  Hits come chunk by chunk,
-        strand-major inside a chunk, as in the JAX engine."""
+        strand-major inside a chunk, as in the JAX engine.  With a mesh the
+        chunks are split over every rank and gathered in chunk order."""
         max_hits = max_hits or self.cfg.max_hits_per_kmer
         seqs = self._prepare(seqs)
         R = seqs.shape[1]
         offsets = self._offsets(R)
+        starts = list(range(0, seqs.shape[0], chunk))
+        mine = starts
+        if self.mesh is not None:
+            from anchored_fusion_tpu_torch.parallel.mesh import row_shard
+            mine = starts[row_shard(self.mesh, len(starts), (0, 1))[0]]
         parts = []
-        for lo in range(0, seqs.shape[0], chunk):
+        for lo in mine:
             sub = seqs[lo:lo + chunk]
             reads = torch.from_numpy(sub).to(self.device)
             rows_c, cols_c = self._seed(reads, offsets, top_k, max_hits)
@@ -402,6 +425,10 @@ class GenomeAlignerXL:
             parts.append(self._collect_multi(lo, sub, st.cpu().numpy(),
                                              top_k, min_score, min_identity,
                                              min_seg_len, R))
+        if self.mesh is not None:
+            from anchored_fusion_tpu_torch.parallel.collectives import (
+                gather_objects)
+            parts = [p for ps in gather_objects(parts) for p in ps]
         return MultiHits(**{
             f.name: np.concatenate([getattr(p, f.name) for p in parts])
             for f in dataclasses.fields(MultiHits)})

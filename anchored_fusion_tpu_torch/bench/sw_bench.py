@@ -3,8 +3,9 @@ a comparison on one card with another version of its source.
 
     python -m anchored_fusion_tpu_torch.bench.sw_bench --baseline OLD/sw.cu
 
-builds OLD/sw.cu (any source that exports ``sw_align_launch`` with the same
-C signature) beside the package's own kernel and prints one JSON line per
+builds OLD/sw.cu (any source that exports ``sw_align_launch``, with or
+without the strips' ``scratch`` argument) beside the package's own kernel
+and prints one JSON line per
 shape: both kernels' times (median of 20 warm launches, CUDA events), taken
 in turns baseline, new, new, baseline, each output held equal to the plain
 version, with the bound of the shape.  chip_smoke.py uses the inputs,
@@ -162,17 +163,26 @@ def load_baseline(source: str):
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed: {proc.stderr}")
+    with open(source) as fh:
+        strips = "void* scratch" in fh.read()
     lib = ctypes.CDLL(so)
     lib.sw_align_launch.restype = ctypes.c_int
     lib.sw_align_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p] * 2
+        + [ctypes.c_void_p] * (3 if strips else 2)
 
     def run(reads, wins, match=1, mismatch=4, gap_open=6, gap_extend=1):
         B, R = reads.shape
+        W = wins.shape[1]
         out = torch.empty((5, B), dtype=torch.int32, device=reads.device)
+        scratch = []
+        if strips:
+            buf = (torch.empty((B, 2, W, 2), dtype=torch.int32,
+                               device=reads.device)
+                   if R > sw_cuda.STRIP_ROWS else None)
+            scratch = [None if buf is None else buf.data_ptr()]
         err = lib.sw_align_launch(
-            reads.data_ptr(), wins.data_ptr(), B, R, wins.shape[1], match,
-            mismatch, gap_open, gap_extend, out.data_ptr(),
+            reads.data_ptr(), wins.data_ptr(), B, R, W, match,
+            mismatch, gap_open, gap_extend, *scratch, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"baseline launch failed: cudaError {err}")

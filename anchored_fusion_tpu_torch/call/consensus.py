@@ -153,15 +153,25 @@ def pack_flanks(seq_left: str, seq_right: str) -> np.ndarray:
 
 def pwm_votes_device(rows: np.ndarray, weights: np.ndarray,
                      group_ids: np.ndarray, n_groups: int,
-                     device="cuda") -> np.ndarray:
+                     device="cuda", mesh=None) -> np.ndarray:
     """Batched PWM vote accumulation on ``device``: the consensus inputs.
 
     ``rows`` (M, 400) consensus-code flanks, ``weights`` (M,) read counts,
     ``group_ids`` (M,) target PWM per row.  One one-hot expansion + weighted
     ``index_add_`` -> (n_groups, 400, 4) int32 vote tensors.  Integer adds
-    are exact and independent of their order.
+    are exact and independent of their order, so with ``mesh`` each dp rank
+    votes over its slice of the rows and an all-reduce of the sums gives the
+    one-device votes bit for bit.
     """
     device = resolve_device(device)
+    if mesh is not None:
+        from anchored_fusion_tpu_torch.parallel.collectives import (
+            psum_pwm_votes)
+        from anchored_fusion_tpu_torch.parallel.mesh import row_shard
+        sl = row_shard(mesh, len(rows))[0]
+        local = pwm_votes_device(rows[sl], np.asarray(weights)[sl],
+                                 np.asarray(group_ids)[sl], n_groups, device)
+        return psum_pwm_votes(mesh, torch.from_numpy(local)).numpy()
     r = torch.from_numpy(np.ascontiguousarray(rows, np.int8)).to(device)
     w = torch.from_numpy(np.asarray(weights, np.int32)).to(device)
     gid = torch.from_numpy(np.asarray(group_ids, np.int64)).to(device)
@@ -175,10 +185,11 @@ def pwm_votes_device(rows: np.ndarray, weights: np.ndarray,
 
 def merge_clusters(groups: List[Tuple[int, List[SplitCluster]]],
                    cfg: CallConfig | None = None,
-                   device="cuda") -> List[SplitCluster]:
+                   device="cuda", mesh=None) -> List[SplitCluster]:
     """Merge raw per-breakpoint clusters into consensus split-read records.
 
-    The vote accumulation runs on ``device`` (see pwm_votes_device).
+    The vote accumulation runs on ``device``, split over ``mesh``'s dp axis
+    when one is given (see pwm_votes_device); the records are the same.
     """
     device = resolve_device(device)
     cfg = cfg or CallConfig()
@@ -215,7 +226,8 @@ def merge_clusters(groups: List[Tuple[int, List[SplitCluster]]],
                              np.int32)
         gids = np.asarray([g for g, (_, members) in enumerate(plan)
                            for _ in members], np.int32)
-        votes = pwm_votes_device(rows, weights, gids, len(plan), device=device)
+        votes = pwm_votes_device(rows, weights, gids, len(plan), device=device,
+                                 mesh=mesh)
         by_bp: dict = {}
         for g, (bp, members) in enumerate(plan):
             seed = members[0]

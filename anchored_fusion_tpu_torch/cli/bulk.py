@@ -14,6 +14,12 @@ Runs on the GPU: ``--gpu_number`` -1 (default) is ``cuda``, N >= 0 is
 ``cuda:N``; without CUDA the run stops at once with exit code 3.  Only
 ``main(argv, device="cpu")`` runs it on the host.
 
+A cluster run starts the same command once per process with
+``--coordinator host0:port --num_procs N --proc_id i`` (or the ``AFT_*``
+variables): every process computes each gene, the anchored alignment split
+by process and all-gathered (FusionPipeline.call_gene), and only process 0
+writes the prediction files and ``run_stats.json``.
+
 Run:
   python -m anchored_fusion_tpu_torch.cli.bulk --file_anchored_cds=... \\
       --fastq1=... --fastq2=... --file_ref_seq=... --file_ref_ann=... \\
@@ -56,7 +62,8 @@ def main(argv=None, device=None) -> int:
     from anchored_fusion_tpu_torch.utils.debug import maybe_enable_from_env
     maybe_enable_from_env()
     args = build_parser().parse_args(argv)
-    common.init_cluster(args)
+    common.init_cluster(args, device)
+    writer = common.is_writer()
     try:
         dev = resolve_device(common.device_for(args, device))
     except RuntimeError as e:
@@ -127,7 +134,8 @@ def main(argv=None, device=None) -> int:
         with log.stage(f"call:{gene_name}", items=reads.n_pairs * 2):
             with gene_guard(gene_name, failures, retries=args.gene_retries) as g:
                 g.run(lambda: pipe.call_gene(
-                    gene_name, anchor_codes, reads, out_prefix=out_prefix,
+                    gene_name, anchor_codes, reads,
+                    out_prefix=out_prefix if writer else None,
                     score_fn=score_fn))
             result = g.result
         if result is None:
@@ -141,7 +149,8 @@ def main(argv=None, device=None) -> int:
         log.set(failures=failures)
     log.set(kernel_launches={"sw_align_fused": sw_cuda.launches,
                              "sw_end": sw_cuda.end_launches})
-    log.dump(os.path.join(args.out_folder, "run_stats.json"))
+    if writer:
+        log.dump(os.path.join(args.out_folder, "run_stats.json"))
     # 2 = every ATTEMPTED gene failed (resume-skips don't mask a dead run),
     # 1 = some failed, 0 = clean
     if failures and len(failures) == attempted:

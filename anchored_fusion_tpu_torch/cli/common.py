@@ -8,6 +8,7 @@ import os
 from typing import Dict, List, Optional, Set
 
 import numpy as np
+import torch
 
 from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
 from anchored_fusion_tpu_torch.io.fasta import (
@@ -69,26 +70,33 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--gene_retries", type=int, default=1,
                    help="Retries per gene on transient failures before the "
                         "gene is recorded as failed and the run continues")
-    # multi-host cluster flags: accepted for flag parity, refused until the
-    # multi-GPU runtime is ported
+    # multi-process cluster flags: launch the same command once per process
+    # with --coordinator host0:port --num_procs N --proc_id i (or the
+    # AFT_COORDINATOR / AFT_NUM_PROCS / AFT_PROC_ID variables); unset, the
+    # run is one process
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-process coordinator address (host:port); "
-                        "not ported yet")
+                   help="torch.distributed rendezvous address (host:port) "
+                        "of process 0; enables the multi-process runtime")
     p.add_argument("--num_procs", type=int, default=None,
-                   help="Total processes in the cluster; not ported yet")
+                   help="Total processes in the cluster")
     p.add_argument("--proc_id", type=int, default=None,
-                   help="This process's id within the cluster; not ported "
-                        "yet")
+                   help="This process's id within the cluster")
 
 
 def device_for(args, device=None) -> str:
     """The torch device of a run: ``device`` when the caller names one (the
-    only way to select the CPU), else ``--gpu_number``: -1 = 'cuda',
+    only way to select the CPU), else ``--gpu_number``: -1 = 'cuda' (in a
+    multi-process run, this process's card: cuda:(local rank % cards)),
     N >= 0 = 'cuda:N'."""
     if device is not None:
         return str(device)
     n = int(args.gpu_number)
-    return "cuda" if n < 0 else f"cuda:{n}"
+    if n >= 0:
+        return f"cuda:{n}"
+    from anchored_fusion_tpu_torch.parallel import distributed
+    if distributed.world_size() > 1 and torch.cuda.is_available():
+        return str(distributed.local_device())
+    return "cuda"
 
 
 def align_config_for(args, genome_bp: int):
@@ -113,15 +121,19 @@ def align_config_for(args, genome_bp: int):
         xl_rescue_hits=profile[2], xl_rescue_top_k=profile[3])
 
 
-def init_cluster(args) -> bool:
-    """Multi-process runs are not ported: raises NotImplementedError when a
-    cluster flag (or AFT_COORDINATOR) is given; returns False otherwise."""
-    if (args.coordinator or os.environ.get("AFT_COORDINATOR")
-            or args.num_procs is not None or args.proc_id is not None):
-        raise NotImplementedError(
-            "--coordinator/--num_procs/--proc_id: the multi-GPU runtime is "
-            "not ported yet (ROADMAP.md, 'Multi-GPU')")
-    return False
+def init_cluster(args, device=None) -> bool:
+    """Join the process group when a cluster flag (or AFT_COORDINATOR) asks
+    for one; returns True iff this is one process of several.  ``device``
+    "cpu" selects the gloo backend (parallel/distributed.py)."""
+    from anchored_fusion_tpu_torch.parallel.distributed import initialize
+    return initialize(args.coordinator, args.num_procs, args.proc_id,
+                      device=device)
+
+
+def is_writer() -> bool:
+    """Only process 0 of a cluster writes shared files."""
+    from anchored_fusion_tpu_torch.parallel import distributed
+    return distributed.rank() == 0
 
 
 def resolve_gene_names(args) -> List[str]:
@@ -260,8 +272,9 @@ def setup_filter(args, pipe: FusionPipeline, index: ExonIndex,
                 pipe.genome_aligner, pipe.genome, index, all_read_seqs,
                 gene_names, homo_map)
         os.makedirs(model_out_dir, exist_ok=True)
-        with open(neg_path, "w") as fh:
-            fh.write("\n".join(negatives) + ("\n" if negatives else ""))
+        if is_writer():
+            with open(neg_path, "w") as fh:
+                fh.write("\n".join(negatives) + ("\n" if negatives else ""))
         negatives = [n.split("\t")[0] for n in negatives]
     if not negatives:
         print("warning: no negative samples mined; filter disabled")
@@ -276,7 +289,9 @@ def setup_filter(args, pipe: FusionPipeline, index: ExonIndex,
         except (OSError, ValueError, KeyError, RuntimeError):
             warm = None
     with stage("train_filter"):
-        return train_filter_model(positives, negatives, cfg, model_file,
+        # every process trains the same model; process 0 saves it
+        return train_filter_model(positives, negatives, cfg,
+                                  model_file if is_writer() else None,
                                   warm_start=warm, device=device)
 
 

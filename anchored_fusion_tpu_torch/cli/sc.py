@@ -17,6 +17,11 @@ Runs on the GPU: ``--gpu_number`` -1 (default) is ``cuda``, N >= 0 is
 ``cuda:N``; without CUDA the run stops at once with exit code 3.  Only
 ``main(argv, device="cpu")`` runs it on the host.
 
+A cluster run (``--coordinator/--num_procs/--proc_id`` or the ``AFT_*``
+variables, one process each) splits the cells by process; each process
+writes its cells' files, and process 0 aggregates over every cell after a
+barrier.
+
 Run:
   python -m anchored_fusion_tpu_torch.cli.sc --file_anchored_cds=... \\
       --fastq_dir=cells/ --file_ref_seq=... --file_ref_ann=... \\
@@ -129,7 +134,8 @@ def main(argv=None, device=None) -> int:
     from anchored_fusion_tpu_torch.utils.debug import maybe_enable_from_env
     maybe_enable_from_env()
     args = build_parser().parse_args(argv)
-    common.init_cluster(args)
+    multi = common.init_cluster(args, device)
+    writer = common.is_writer()
     try:
         dev = resolve_device(common.device_for(args, device))
     except RuntimeError as e:
@@ -142,9 +148,18 @@ def main(argv=None, device=None) -> int:
     log = StageLogger("singlecell")
     gene_names = common.resolve_gene_names(args)
     pairs = discover_pairs(args.fastq_dir)
+    all_cells = [name for name, _f1, _f2 in pairs]
     if not pairs:
         print("no per-cell FASTQ pairs found")
         return 1
+    if multi:
+        # each process calls its own slice of the cells and writes their
+        # per-cell files (distinct paths); process 0 aggregates over every
+        # cell after the barrier below.  With the filter on, each process
+        # mines negatives from its own cells: pass a trained --model_file or
+        # a shared --negative_samples for one model everywhere
+        from anchored_fusion_tpu_torch.parallel.distributed import host_shard
+        pairs = pairs[host_shard(len(pairs))]
     os.makedirs(args.out_folder, exist_ok=True)
     model_out = os.path.join(args.out_folder, "model_dir")
     os.makedirs(model_out, exist_ok=True)
@@ -169,7 +184,7 @@ def main(argv=None, device=None) -> int:
             os.path.join(args.fastq_dir, f1), os.path.join(args.fastq_dir, f2))
 
     filt = None
-    if not args.not_filter_false_positive:
+    if not args.not_filter_false_positive and cell_reads:
         with log.stage("filter_setup"):
             all_seqs = np.concatenate(
                 [rb.seq.reshape(-1, rb.seq.shape[-1])
@@ -201,11 +216,17 @@ def main(argv=None, device=None) -> int:
                 score_fn=score_fn, failures=failures)
         if failures:
             log.set(**{f"failures.{gene_name}": failures})
-        write_cell_aggregates(gene_dir, work_dir, out_name, results,
-                              not args.not_filter_false_positive)
+        if multi:
+            from anchored_fusion_tpu_torch.parallel.distributed import barrier
+            barrier(f"sc_cells_done:{gene_name}")
+        if writer:
+            write_cell_aggregates(gene_dir, work_dir, out_name,
+                                  all_cells if multi else results,
+                                  not args.not_filter_false_positive)
     log.set(kernel_launches={"sw_align_fused": sw_cuda.launches,
                              "sw_end": sw_cuda.end_launches})
-    log.dump(os.path.join(args.out_folder, "run_stats.json"))
+    if writer:
+        log.dump(os.path.join(args.out_folder, "run_stats.json"))
     return 0
 
 

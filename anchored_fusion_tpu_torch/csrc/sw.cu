@@ -36,8 +36,8 @@
 // its own least: per step the largest key H * 32 + (31 - k) over its rows
 // (the highest score, then the lowest row), taken only if its score beats
 // the lane's best strictly.  One warp reduction (max score, then min column,
-// then min row) gives the pair's.  H < 2^26 (match < 2^16, R <= 1024) keeps
-// the key in an int.
+// then min row) gives the pair's.  H <= match * min(R, W) < 2^26, which
+// the launch checks, keeps the key in an int.
 //
 // Trailing PAD.  Rows past a pair's last valid read row and columns past its
 // last valid window column are not needed: every cell there has s <= NEG,
@@ -78,7 +78,18 @@
 // - the window's staged codes sit in shared memory (W bytes per pair), the
 //   next step's code is loaded a step ahead, and the reverse pass reads
 //   read[end_read - i] and win[end_win - j] by index arithmetic; no
-//   __syncthreads anywhere.
+//   __syncthreads anywhere;
+// - rows past 32 * RPL (RPL is at most 32, so past 1,024 rows) are walked
+//   in strips of 32 * RPL rows, top to bottom, each a whole wavefront over
+//   the columns.  At each column the strip's last row (lane 31) writes its
+//   H and F to a per-pair boundary row in global scratch (two rows of W
+//   int2, written and read in turns), and the next strip's lane 0 takes
+//   that boundary where the first strip sees the top edge (H = 0,
+//   F = NEG), its diagonal included.  A strip's best joins the pair's by
+//   before(), so the order stays higher score, earlier column, lower row.
+//   Pairs of up to 1,024 rows run one strip and never touch the scratch;
+// - a block holds fewer than kWarps pairs when kWarps * (R + W) bytes of
+//   staged codes would pass the 227 KB of shared memory a block may use.
 // The TPU kernel's transposed lane layout, log-step prefix max and scratch
 // refs were Mosaic constraints and have no counterpart here.
 
@@ -92,7 +103,9 @@ constexpr int kPad = 5;        // staged code of an invalid cell
 constexpr int kN = 4;          // staged code of a valid code >= 4
 constexpr int kNoMatch = 99;   // read-side code equal to no window code
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 4;      // pairs per block
+constexpr int kWarps = 4;      // pairs per block, at most
+constexpr int kMaxRpl = 32;    // rows a lane holds; taller pairs run strips
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of a block
 
 struct Best {
   int score, col, row;
@@ -118,70 +131,101 @@ __device__ __forceinline__ Best warp_best(Best b) {
   return b;
 }
 
-// One DP pass over nrows x ncols cells.  Forward: rd[i], wn[j].  Reverse:
-// rd[rend - i], wn[wend - j].  rd and wn hold staged codes (kPad invalid).
+// One DP pass over nrows x ncols cells, in strips of 32 * RPL rows.
+// Forward: rd[i], wn[j].  Reverse: rd[rend - i], wn[wend - j].  rd and wn
+// hold staged codes (kPad invalid).  bnd: two boundary rows of ncols (H, F)
+// pairs, read only when nrows passes one strip.
 template <int RPL, bool REVERSE>
 __device__ Best sw_pass(const int8_t* rd, int nrows, const int8_t* wn,
                         int ncols, int rend, int wend, int match, int mismatch,
-                        int go, int ge) {
+                        int go, int ge, int2* bnd) {
+  constexpr int kStrip = 32 * RPL;
   const int lane = threadIdx.x & 31;
-  int rcmp[RPL], rbase[RPL], H[RPL], E[RPL];
   const int e0 = max(-go, kNeg - ge);  // E of column 0: H = 0, E = NEG left
-#pragma unroll
-  for (int k = 0; k < RPL; ++k) {
-    const int i = lane * RPL + k;
-    const int c = i < nrows ? rd[REVERSE ? rend - i : i] : kPad;
-    rcmp[k] = c < 4 ? c : kNoMatch;
-    rbase[k] = c != kPad ? -mismatch : kNeg;
-    H[k] = 0;
-    E[k] = e0;
-  }
-  const int nlanes = (nrows + RPL - 1) / RPL;
-  const int steps = (nrows > 0 && ncols > 0) ? ncols + nlanes - 1 : 0;
-  int lastH = 0, lastF = kNeg;  // this lane's last row, its latest column
-  int diag0 = 0;                // H above the strip, previous column
-  // The lane's best as keys H * 32 + (31 - k): a larger key is a higher
-  // score, then a lower row.  bhi = best score * 32 + 31, so only a strictly
-  // higher score beats it; bkey is the winning key, bcol its column.
-  int bhi = 31, bkey = 31, bcol = 0;
   // staged code of window column j; PAD outside the pass's columns
   const auto wcode = [&](int j) {
     return (j >= 0 && j < ncols) ? (int)wn[REVERSE ? wend - j : j] : kPad;
   };
-  int w = wcode(-lane);
-  for (int t = 0; t < steps; ++t) {
-    const int j = t - lane;
-    const int wnext = wcode(j + 1);
-    const int upH = __shfl_up_sync(kFull, lastH, 1);
-    const int upF = __shfl_up_sync(kFull, lastF, 1);
-    const int colpen = w == kPad ? kNeg : 0;
-    int F = lane ? __viaddmax_s32(upF, -ge, upH - go) : kNeg;
-    int diag = diag0;
+  Best best{0, 0, 0};
+  const int nstrips = ncols > 0 ? (nrows + kStrip - 1) / kStrip : 0;
+  for (int st = 0; st < nstrips; ++st) {
+    const int base = st * kStrip;
+    const int srows = min(kStrip, nrows - base);
+    const int2* above = bnd + (st & 1) * ncols;   // the strip above wrote it
+    int2* below = bnd + ((st + 1) & 1) * ncols;   // the strip below reads it
+    const bool write_below = lane == 31 && st + 1 < nstrips;
+    int rcmp[RPL], rbase[RPL], H[RPL], E[RPL];
 #pragma unroll
     for (int k = 0; k < RPL; ++k) {
-      const int s = rcmp[k] == w ? match : rbase[k];
-      const int hn = __vimax_s32_relu(diag + s + colpen, E[k]);  // HnoF
-      const int h = max(hn, F);
-      diag = H[k];
-      H[k] = h;
-      E[k] = __viaddmax_s32(E[k], -ge, h - go);  // E of column j + 1
-      if (k + 1 < RPL) F = __viaddmax_s32(F, -ge, hn - go);
+      const int i = lane * RPL + k;
+      const int c =
+          i < srows ? rd[REVERSE ? rend - base - i : base + i] : kPad;
+      rcmp[k] = c < 4 ? c : kNoMatch;
+      rbase[k] = c != kPad ? -mismatch : kNeg;
+      H[k] = 0;
+      E[k] = e0;
     }
-    lastH = H[RPL - 1];
-    lastF = F;
-    diag0 = lane ? upH : 0;
-    w = wnext;
-    int key = H[0] * 32 + 31;
+    const int nlanes = (srows + RPL - 1) / RPL;
+    const int steps = ncols + nlanes - 1;
+    int lastH = 0, lastF = kNeg;  // this lane's last row, its latest column
+    int diag0 = 0;                // H above the lane's rows, previous column
+    // The lane's best as keys H * 32 + (31 - k): a larger key is a higher
+    // score, then a lower row.  bhi = best score * 32 + 31, so only a
+    // strictly higher score beats it; bkey is the winning key, bcol its
+    // column.
+    int bhi = 31, bkey = 31, bcol = 0;
+    int w = wcode(-lane);
+    for (int t = 0; t < steps; ++t) {
+      const int j = t - lane;
+      const int wnext = wcode(j + 1);
+      int upH = __shfl_up_sync(kFull, lastH, 1);
+      int upF = __shfl_up_sync(kFull, lastF, 1);
+      if (lane == 0) {
+        // the row above the strip: the top edge, or the last row of the
+        // strip above
+        upH = 0;
+        upF = kNeg;
+        if (st > 0 && j < ncols) {
+          const int2 b = above[j];
+          upH = b.x;
+          upF = b.y;
+        }
+      }
+      const int colpen = w == kPad ? kNeg : 0;
+      int F = (lane || st) ? __viaddmax_s32(upF, -ge, upH - go) : kNeg;
+      int diag = diag0;
 #pragma unroll
-    for (int k = 1; k + 1 < RPL; k += 2)
-      key = __vimax3_s32(key, H[k] * 32 + (31 - k), H[k + 1] * 32 + (30 - k));
-    if (RPL % 2 == 0) key = max(key, H[RPL - 1] * 32 + (32 - RPL));
-    bool keep;
-    bhi = __vibmax_s32(bhi, key, &keep) | 31;
-    bkey = keep ? bkey : key;
-    bcol = keep ? bcol : j;
+      for (int k = 0; k < RPL; ++k) {
+        const int s = rcmp[k] == w ? match : rbase[k];
+        const int hn = __vimax_s32_relu(diag + s + colpen, E[k]);  // HnoF
+        const int h = max(hn, F);
+        diag = H[k];
+        H[k] = h;
+        E[k] = __viaddmax_s32(E[k], -ge, h - go);  // E of column j + 1
+        if (k + 1 < RPL) F = __viaddmax_s32(F, -ge, hn - go);
+      }
+      lastH = H[RPL - 1];
+      lastF = F;
+      if (write_below && j >= 0 && j < ncols) below[j] = make_int2(lastH, F);
+      diag0 = upH;
+      w = wnext;
+      int key = H[0] * 32 + 31;
+#pragma unroll
+      for (int k = 1; k + 1 < RPL; k += 2)
+        key = __vimax3_s32(key, H[k] * 32 + (31 - k),
+                           H[k + 1] * 32 + (30 - k));
+      if (RPL % 2 == 0) key = max(key, H[RPL - 1] * 32 + (32 - RPL));
+      bool keep;
+      bhi = __vibmax_s32(bhi, key, &keep) | 31;
+      bkey = keep ? bkey : key;
+      bcol = keep ? bcol : j;
+    }
+    const Best b = warp_best(
+        Best{bhi >> 5, bcol, base + lane * RPL + 31 - (bkey & 31)});
+    if (before(b, best)) best = b;
+    __syncwarp();  // the boundary row is whole before the next strip reads it
   }
-  return warp_best(Best{bhi >> 5, bcol, lane * RPL + 31 - (bkey & 31)});
+  return best;
 }
 
 // Copy n codes to shared memory as staged codes; returns the last valid
@@ -206,13 +250,15 @@ __global__ void __launch_bounds__(32 * kWarps)
     sw_kernel(const int8_t* __restrict__ reads, const int8_t* __restrict__ wins,
               const uint8_t* __restrict__ rmask,
               const uint8_t* __restrict__ wmask, int B, int R, int W,
-              int match, int mismatch, int go, int ge, int* __restrict__ out) {
+              int match, int mismatch, int go, int ge, int2* scratch,
+              int* __restrict__ out) {
   extern __shared__ int8_t smem[];
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + warp;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // whole warps only: nothing below syncs the block
   int8_t* rd = smem + warp * ((R + W + 15) & ~15);
   int8_t* wn = rd + R;
+  int2* bnd = scratch ? scratch + (size_t)b * 2 * W : nullptr;
   const size_t ro = (size_t)b * R, wo = (size_t)b * W;
   const int last_r =
       stage<MASKED>(reads + ro, MASKED ? rmask + ro : nullptr, R, rd);
@@ -221,7 +267,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   __syncwarp();
 
   const Best f = sw_pass<RPL, false>(rd, last_r + 1, wn, last_w + 1, 0, 0,
-                                     match, mismatch, go, ge);
+                                     match, mismatch, go, ge, bnd);
   if (MASKED) {
     if ((threadIdx.x & 31) == 0) {
       out[0 * (size_t)B + b] = f.score;
@@ -231,7 +277,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     return;
   }
   const Best r = sw_pass<RPL, true>(rd, f.row + 1, wn, f.col + 1, f.row,
-                                    f.col, match, mismatch, go, ge);
+                                    f.col, match, mismatch, go, ge, bnd);
   if ((threadIdx.x & 31) == 0) {
     out[0 * (size_t)B + b] = f.score;
     out[1 * (size_t)B + b] = f.row;
@@ -244,39 +290,49 @@ __global__ void __launch_bounds__(32 * kWarps)
 template <int RPL, bool MASKED>
 int run(const void* reads, const void* wins, const void* rmask,
         const void* wmask, int B, int R, int W, int match, int mismatch,
-        int go, int ge, void* out, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * ((R + W + 15) & ~15);
+        int go, int ge, void* scratch, void* out, cudaStream_t stream) {
+  // a pair's staged codes; as many pairs a block as its shared memory holds
+  const size_t per_pair = (size_t)((R + W + 15) & ~15);
+  const int warps = (int)(kMaxSmem / per_pair < (size_t)kWarps
+                              ? kMaxSmem / per_pair
+                              : (size_t)kWarps);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = warps * per_pair;
   auto kernel = sw_kernel<RPL, MASKED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(B + kWarps - 1) / kWarps, 32 * kWarps, smem, stream>>>(
+  kernel<<<(B + warps - 1) / warps, 32 * warps, smem, stream>>>(
       (const int8_t*)reads, (const int8_t*)wins, (const uint8_t*)rmask,
-      (const uint8_t*)wmask, B, R, W, match, mismatch, go, ge, (int*)out);
+      (const uint8_t*)wmask, B, R, W, match, mismatch, go, ge, (int2*)scratch,
+      (int*)out);
   return (int)cudaGetLastError();
 }
 
 template <bool MASKED>
 int dispatch(const void* reads, const void* wins, const void* rmask,
              const void* wmask, int B, int R, int W, int match, int mismatch,
-             int gap_open, int gap_extend, void* out, void* stream) {
+             int gap_open, int gap_extend, void* scratch, void* out,
+             void* stream) {
   if (B <= 0) return 0;
   // gap_open >= 0 and gap_extend >= 0 for Gotoh's F and the PAD columns
-  // outside a pass; match < 2^16 keeps H * 32 (H <= match * R) in an int
-  if (R <= 0 || R > 1024 || W <= 0 || gap_open < 0 || gap_extend < 0 ||
-      match >= (1 << 16)) {
+  // outside a pass; H <= match * min(R, W) < 2^26 keeps H * 32 + 31 in an
+  // int; more than one strip needs the boundary scratch
+  if (R <= 0 || W <= 0 || gap_open < 0 || gap_extend < 0 ||
+      (long long)match * (R < W ? R : W) >= (1LL << 26) ||
+      (R > 32 * kMaxRpl && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int go = gap_open + gap_extend, ge = gap_extend;
   const cudaStream_t s = (cudaStream_t)stream;
   int rpl = 1;
-  while (rpl * 32 < R) rpl <<= 1;
+  while (rpl * 32 < R && rpl < kMaxRpl) rpl <<= 1;
 #define SW_RUN(N)                                                           \
   case N:                                                                   \
     return run<N, MASKED>(reads, wins, rmask, wmask, B, R, W, match,        \
-                          mismatch, go, ge, out, s);
+                          mismatch, go, ge, scratch, out, s);
   switch (rpl) {
     SW_RUN(1)
     SW_RUN(2)
@@ -292,14 +348,16 @@ int dispatch(const void* reads, const void* wins, const void* rmask,
 }  // namespace
 
 // reads (B, R) int8, wins (B, W) int8, out (5, B) int32, all contiguous on
-// the device; stream is a cudaStream_t.  Returns the cudaError_t of the
-// launch (0 on success).
+// the device; scratch (B, 2, W) int2 when R > 1024 (the strips' boundary
+// rows), else null; stream is a cudaStream_t.  Returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int sw_align_launch(const void* reads, const void* wins, int B,
                                int R, int W, int match, int mismatch,
-                               int gap_open, int gap_extend, void* out,
-                               void* stream) {
+                               int gap_open, int gap_extend, void* scratch,
+                               void* out, void* stream) {
   return dispatch<false>(reads, wins, nullptr, nullptr, B, R, W, match,
-                         mismatch, gap_open, gap_extend, out, stream);
+                         mismatch, gap_open, gap_extend, scratch, out,
+                         stream);
 }
 
 // As sw_align_launch, forward pass only, validity from read_valid (B, R) and
@@ -307,8 +365,8 @@ extern "C" int sw_align_launch(const void* reads, const void* wins, int B,
 extern "C" int sw_end_launch(const void* reads, const void* wins,
                              const void* read_valid, const void* window_valid,
                              int B, int R, int W, int match, int mismatch,
-                             int gap_open, int gap_extend, void* out,
-                             void* stream) {
+                             int gap_open, int gap_extend, void* scratch,
+                             void* out, void* stream) {
   return dispatch<true>(reads, wins, read_valid, window_valid, B, R, W, match,
-                        mismatch, gap_open, gap_extend, out, stream);
+                        mismatch, gap_open, gap_extend, scratch, out, stream);
 }

@@ -1,1 +1,2 @@
-"""False-positive filter: the CNN+Transformer model, its training, its inputs."""
+"""False-positive filters: the CNN+Transformer model, its training, its
+inputs; the bi-LSTM and SVM variants."""

@@ -50,6 +50,25 @@ BN_EPS = 1e-5
 _TRUNC_STD = 0.87962566103423978
 
 
+# The data-parallel split of the batch in flight (see data_parallel).
+_DP = None
+
+
+@contextlib.contextmanager
+def data_parallel(group, lo: int, n: int):
+    """Inside, this rank's rows are rows [lo, lo + local) of a global batch
+    of ``n`` rows split over ``group``: dropout draws the global batch's
+    masks and keeps this rank's rows, and training BatchNorm normalises
+    with the global batch's statistics (an all-reduce of sum, sum of
+    squares; differentiated), as one device computing the whole batch."""
+    global _DP
+    prev, _DP = _DP, (group, lo, n)
+    try:
+        yield
+    finally:
+        _DP = prev
+
+
 @contextlib.contextmanager
 def full_fp32():
     """Run float32 matrix products in full float32 (TF32 off)."""
@@ -67,7 +86,12 @@ def _dropout(x, p: float, training: bool,
     the mask is drawn from ``generator``."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if _DP is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    else:
+        _, lo, n = _DP
+        keep = torch.rand((n,) + x.shape[1:], generator=generator,
+                          device=x.device)[lo:lo + x.shape[0]] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -87,10 +111,21 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             mean, var = self.running_mean, self.running_var
+        elif _DP is not None:
+            from anchored_fusion_tpu_torch.parallel.collectives import (
+                all_reduce_sum_grad)
+            group, _, n = _DP
+            c = x.shape[-1]
+            sums = all_reduce_sum_grad(torch.cat(
+                [x.sum(dim=(0, 1)), (x * x).sum(dim=(0, 1))]), group)
+            mean = sums[:c] / (n * x.shape[1])
+            var = torch.clamp(sums[c:] / (n * x.shape[1]) - mean * mean,
+                              min=0.0)
         else:
             mean = x.mean(dim=(0, 1))
             var = torch.clamp((x * x).mean(dim=(0, 1)) - mean * mean,
                               min=0.0)
+        if self.training:
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean)

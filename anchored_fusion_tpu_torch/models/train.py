@@ -11,6 +11,22 @@ seed draws the dropout masks.  Training and scoring run on the filter's
 Checkpoints: ``.pt`` / ``.pth`` hold the reference state_dict (bare or
 wrapped); any other path holds Flax's msgpack layout, the JAX package's
 default ``--model_file``.  Both packages read both.
+
+With a (dp, mp) mesh (parallel/mesh.py) every rank runs the same loop.
+Data parallel: a batch that dp divides is split over dp, each rank's loss is
+weighted by its share, and the gradients are summed with one all-reduce; the
+dropout masks and the BatchNorm statistics are the whole batch's
+(filter_cnn.data_parallel), so the step is the one-device step up to float
+summation order.  A batch dp does not divide runs whole on every rank, as
+the JAX trainer replicates it.  Tensor parallel: the weights that
+:func:`param_shardings` selects are held as mp shards, their Adam moments
+too.  A selected Linear weight splits its product: sharded on its output
+features it is column-parallel (each rank its slice of the outputs, joined
+by an all-gather), on its input features row-parallel (each rank its slice
+of the inputs, the partial products summed by an all-reduce), and one
+all-reduce in the backward sums the input gradient.  Another selected
+weight (a convolution's, the attention's packed projection, the positional
+table: only at small ``tp_min_width``) is all-gathered whole at use.
 """
 
 from __future__ import annotations
@@ -20,11 +36,12 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from anchored_fusion_tpu_torch.config import FilterModelConfig
 from anchored_fusion_tpu_torch.models import data as fdata
 from anchored_fusion_tpu_torch.models.filter_cnn import (
-    FilterModel, deep_supervision_loss, full_fp32)
+    FilterModel, data_parallel, deep_supervision_loss, full_fp32)
 from anchored_fusion_tpu_torch.models.weights import (
     flax_from_state_dict, state_dict_from_flax)
 from anchored_fusion_tpu_torch.utils import msgpack_lite
@@ -88,23 +105,178 @@ class TrainedFilter:
 
 
 def _snapshot(model: FilterModel) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in model.state_dict().items()}
+    """The state_dict on the host, mp-sharded weights whole again (a
+    collective when the model is sharded)."""
+    sd = {k: v.detach().to("cpu", copy=True)
+          for k, v in model.state_dict().items()
+          if ".parametrizations." not in k}
+    for mname, mod in model.named_modules():
+        if parametrize.is_parametrized(mod):
+            for pname in mod.parametrizations:
+                sd[f"{mname}.{pname}"] = getattr(mod, pname).detach().to(
+                    "cpu", copy=True)
+        if isinstance(mod, ShardedLinear):
+            for pname, whole in mod.whole().items():
+                sd[f"{mname}.{pname}"] = whole.to("cpu", copy=True)
+    return sd
+
+
+def param_shardings(model: FilterModel, mp: int,
+                    tp_min_width: int = 1024) -> Dict[str, int]:
+    """The JAX trainer's tensor-parallel rule on the port's parameters:
+    a weight whose Flax kernel has a dimension of ``tp_min_width`` or more
+    shards its widest (first widest) dimension over ``mp`` ranks when they
+    divide it; biases and norms stay whole.  Returns {parameter name: the
+    torch axis of that dimension} (a torch Linear weight is the Flax kernel
+    transposed, models/weights.py)."""
+    from anchored_fusion_tpu_torch.models.weights import _flax_modules
+    params = dict(model.named_parameters())
+
+    def axis(flax_shape):
+        if mp > 1 and len(flax_shape) >= 2 and max(flax_shape) >= tp_min_width:
+            ax = int(np.argmax(flax_shape))
+            if flax_shape[ax] % mp == 0:
+                return ax
+        return None
+
+    out: Dict[str, int] = {}
+
+    def pick(name, flax_shape, to_torch):
+        ax = axis(flax_shape)
+        if ax is not None:
+            out[name] = to_torch[ax]
+
+    heads = model.cfg.transformer_heads
+    for name, _path, kind in _flax_modules(model.cfg):
+        if kind == "dense":
+            w = params[f"{name}.weight"].shape              # (out, in)
+            pick(f"{name}.weight", (w[1], w[0]), (1, 0))
+        elif kind == "conv":
+            w = params[f"{name}.weight"].shape              # (out, in, k)
+            pick(f"{name}.weight", (w[2], w[1], w[0]), (2, 1, 0))
+        elif kind == "mha":
+            h = params[f"{name}.in_proj_weight"].shape[1]   # (3h, h)
+            # query/key/value kernels (h, heads, h/heads); out (heads, hd, h)
+            pick(f"{name}.in_proj_weight", (h, heads, h // heads), (1, 0, 0))
+            pick(f"{name}.out_proj.weight", (heads, h // heads, h), (1, 1, 0))
+    pe = "transformer.position_encoding.weight"
+    pick(pe, tuple(params[pe].shape), (0, 1))
+    return out
+
+
+class _Gathered(torch.nn.Module):
+    """Parametrization: the module keeps its shard of a weight, and the
+    weight it computes with is the all-gathered whole."""
+
+    def __init__(self, axis: int, group, index: int, size: int):
+        super().__init__()
+        self.axis, self.group, self.index, self.size = axis, group, index, size
+
+    def forward(self, shard):
+        from anchored_fusion_tpu_torch.parallel.collectives import (
+            gather_shards)
+        return gather_shards(shard, self.axis, self.group, self.index,
+                             self.size)
+
+    def right_inverse(self, whole):
+        return whole.chunk(self.size, self.axis)[self.index].clone()
+
+
+class ShardedLinear(torch.nn.Module):
+    """A Linear layer whose weight is split over the ranks of ``group``:
+    ``axis`` 0 (output features) column-parallel, its bias split alike;
+    ``axis`` 1 (input features) row-parallel, its bias whole (module
+    docstring)."""
+
+    def __init__(self, linear: torch.nn.Linear, axis: int, group, index: int,
+                 size: int):
+        super().__init__()
+        self.axis, self.group, self.index, self.size = axis, group, index, size
+        part = lambda t: torch.nn.Parameter(  # noqa: E731
+            t.detach().chunk(size, axis)[index].clone())
+        self.weight = part(linear.weight)
+        self.bias = (part(linear.bias) if axis == 0 else
+                     torch.nn.Parameter(linear.bias.detach().clone()))
+        self.width = linear.in_features // size
+
+    def forward(self, x):
+        from anchored_fusion_tpu_torch.parallel.collectives import (
+            copy_to_group, gather_shards, reduce_from_group)
+        x = copy_to_group(x, self.group)
+        if self.axis == 0:
+            return gather_shards(torch.nn.functional.linear(
+                x, self.weight, self.bias), -1, self.group, self.index,
+                self.size)
+        lo = self.index * self.width
+        return reduce_from_group(torch.nn.functional.linear(
+            x[..., lo:lo + self.width], self.weight), self.group) + self.bias
+
+    @torch.no_grad()
+    def whole(self) -> Dict[str, torch.Tensor]:
+        """The whole weight and bias (an all-gather over the group)."""
+        from anchored_fusion_tpu_torch.parallel.collectives import (
+            gather_shards)
+        out = {"weight": gather_shards(self.weight, self.axis, self.group,
+                                       self.index, self.size)}
+        out["bias"] = (gather_shards(self.bias, 0, self.group, self.index,
+                                     self.size)
+                       if self.axis == 0 else self.bias.detach())
+        return out
+
+
+def shard_parameters_(model: FilterModel, mesh,
+                      tp_min_width: int = 1024) -> Dict[str, int]:
+    """Hold the :func:`param_shardings` weights as this rank's mp shard:
+    selected Linear layers become :class:`ShardedLinear`, any other
+    selected weight is gathered whole at use."""
+    spec = param_shardings(model, mesh.size(1), tp_min_width)
+    group, index, size = mesh.get_group(1), mesh.get_local_rank(1), \
+        mesh.size(1)
+    for name, ax in spec.items():
+        mname, pname = name.rsplit(".", 1)
+        mod = model.get_submodule(mname)
+        if isinstance(mod, torch.nn.Linear) and pname == "weight":
+            parent, _, child = mname.rpartition(".")
+            setattr(model.get_submodule(parent) if parent else model, child,
+                    ShardedLinear(mod, ax, group, index, size))
+        else:
+            parametrize.register_parametrization(
+                mod, pname, _Gathered(ax, group, index, size), unsafe=True)
+    return spec
 
 
 def train_step(model: FilterModel, opt: torch.optim.Optimizer,
                x: torch.Tensor, y: torch.Tensor, generator: torch.Generator,
-               cfg: FilterModelConfig) -> torch.Tensor:
+               cfg: FilterModelConfig, dp=None) -> torch.Tensor:
     """One training step in train mode (dropout from ``generator``, batch
-    statistics updated); returns the final head's probabilities."""
+    statistics updated); returns the final head's probabilities.  ``dp``:
+    (group, lo, n) when ``x`` holds rows [lo, lo + len(x)) of a batch of
+    ``n`` rows split over ``group`` (module docstring)."""
     model.train()
     with full_fp32():
-        outs, final = model(x, generator)
-        loss = deep_supervision_loss(outs, final, y, cfg.a1, cfg.a2)
+        if dp is None:
+            outs, final = model(x, generator)
+            loss = deep_supervision_loss(outs, final, y, cfg.a1, cfg.a2)
+        else:
+            with data_parallel(*dp):
+                outs, final = model(x, generator)
+            loss = deep_supervision_loss(outs, final, y, cfg.a1, cfg.a2) \
+                * (x.shape[0] / dp[2])
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if dp is not None:
+            _sum_grads(model, dp[0])
         opt.step()
     return final.detach()
+
+
+def _sum_grads(model: FilterModel, group):
+    """All-reduce every gradient over ``group`` as one flat buffer."""
+    from anchored_fusion_tpu_torch.parallel.collectives import all_reduce_sum
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 def train_filter_model(
@@ -116,16 +288,16 @@ def train_filter_model(
     verbose: bool = True,
     mesh=None,
     device="cuda",
+    tp_min_width: int = 1024,
 ) -> TrainedFilter:
     """Train on junction strings; returns the best-AUC checkpoint.
 
-    ``mesh`` (the JAX trainer's data/tensor-parallel mesh) is not ported:
-    passing one raises NotImplementedError.
+    With ``mesh`` (parallel/mesh.py) every rank trains on its ``device``,
+    data parallel over dp and with the weights of :func:`param_shardings`
+    split over mp (module docstring); every rank returns the same filter and
+    only rank 0 writes ``model_file``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU filter training is not ported yet (ROADMAP.md, "
-            "'Multi-GPU')")
+    from anchored_fusion_tpu_torch.parallel import distributed
     cfg = cfg or FilterModelConfig()
     dev = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
@@ -145,6 +317,14 @@ def train_filter_model(
     if warm_start is not None:
         model.load_state_dict(warm_start.state_dict)
     model.to(dev)
+    dp = 1
+    if mesh is not None:
+        dp, dp_rank, dp_group = (mesh.size(0), mesh.get_local_rank(0),
+                                 mesh.get_group(0))
+        shard_parameters_(model, mesh, tp_min_width)
+        if distributed.rank() != 0:
+            model_file = None
+    # after sharding: the Adam moments take the shards' shapes
     opt = torch.optim.Adam(model.parameters(), lr=cfg.learning_rate)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     xs_tr = torch.from_numpy(X_tr).to(dev)
@@ -166,8 +346,17 @@ def train_filter_model(
         preds = []
         for lo in range(0, len(order), bs):
             sel = order_dev[lo:lo + bs]
-            preds.append(train_step(model, opt, xs_tr[sel], ys_tr[sel], gen,
-                                    cfg)[:, 1])
+            n = len(sel)
+            if dp > 1 and n % dp == 0:
+                per = n // dp
+                mine = sel[dp_rank * per:(dp_rank + 1) * per]
+                p1 = train_step(model, opt, xs_tr[mine], ys_tr[mine], gen,
+                                cfg, dp=(dp_group, dp_rank * per, n))[:, 1]
+                preds.append(torch.from_numpy(distributed.gather_rows(
+                    p1.cpu().numpy(), [per] * dp, dp_group)).to(dev))
+            else:
+                preds.append(train_step(model, opt, xs_tr[sel], ys_tr[sel],
+                                        gen, cfg)[:, 1])
         tr_auc = fdata.roc_auc(y_tr[order], torch.cat(preds).cpu().numpy())
         te_scores = _forward_p1(model, xs_te, bs)
         te_auc = fdata.roc_auc(y_te, te_scores) if len(te_scores) else 0.0

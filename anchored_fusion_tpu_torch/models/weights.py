@@ -160,3 +160,33 @@ def flax_from_state_dict(sd, cfg: FilterModelConfig) -> dict:
     params["position_encoding"] = _f32(
         sd["transformer.position_encoding.weight"])
     return {"params": params, "batch_stats": stats}
+
+
+_GATES = ("i", "f", "g", "o")   # torch's stacking order of the LSTM gates
+
+
+def bilstm_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The port's BiLSTMFilter state_dict from the JAX package's Flax
+    ``params`` (numpy or jax arrays).  ``BiLSTM_i/OptimizedLSTMCell_0`` is
+    the forward cell and ``_1`` the backward one; a cell's input kernels
+    ``ii/if/ig/io`` (in, h) have no bias, its hidden kernels ``hi/hf/hg/ho``
+    (h, h) do.  torch stacks the gates i, f, g, o and transposes them; the
+    hidden biases become ``bias_hh`` and ``bias_ih`` is zero."""
+    sd: Dict[str, np.ndarray] = {
+        "embed.weight": _f32(params["Embed_0"]["embedding"])}
+    for i in range(4):
+        for cell, suffix in (("OptimizedLSTMCell_0", ""),
+                             ("OptimizedLSTMCell_1", "_reverse")):
+            c = params[f"BiLSTM_{i}"][cell]
+            pre = f"lstms.{i}.lstm."
+            sd[pre + "weight_ih_l0" + suffix] = np.concatenate(
+                [_f32(c["i" + g]["kernel"]).T for g in _GATES])
+            sd[pre + "weight_hh_l0" + suffix] = np.concatenate(
+                [_f32(c["h" + g]["kernel"]).T for g in _GATES])
+            bias = np.concatenate([_f32(c["h" + g]["bias"]) for g in _GATES])
+            sd[pre + "bias_hh_l0" + suffix] = bias
+            sd[pre + "bias_ih_l0" + suffix] = np.zeros_like(bias)
+    for j, name in ((0, "dense1"), (1, "dense2")):
+        sd[f"{name}.weight"] = _f32(params[f"Dense_{j}"]["kernel"]).T
+        sd[f"{name}.bias"] = _f32(params[f"Dense_{j}"]["bias"])
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

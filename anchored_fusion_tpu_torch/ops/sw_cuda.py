@@ -12,6 +12,10 @@ launches the kernel, which is built at first use with ``nvcc`` for sm_90a
 from the package's own source into ``_build/`` beside the package, keyed by
 a hash of the source, and bound with ctypes.  A failed build or launch
 raises: there is no fallback.
+
+Any read width up to ``MAX_W`` runs: pairs of more than ``STRIP_ROWS`` rows
+are walked in strips, with a per-pair boundary row in scratch that the
+wrapper allocates (csrc/sw.cu).
 """
 
 from __future__ import annotations
@@ -31,8 +35,12 @@ SOURCE = os.path.join(_PKG, "csrc", "sw.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_R = 1024
 MAX_W = 32768
+# Rows one warp holds in registers (32 lanes x 32 rows); taller pairs run in
+# strips of this height.
+STRIP_ROWS = 1024
+# H * 32 + 31 must fit an int32: match * min(R, W) stays below this.
+KEY_BOUND = 1 << 26
 
 _lib = None
 # Kernel launches in this process, one count per entry; the plain versions
@@ -109,9 +117,9 @@ def _load():
         lib = ctypes.CDLL(build())
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sw_align_launch.restype = i32
-        lib.sw_align_launch.argtypes = [ptr, ptr, *[i32] * 7, ptr, ptr]
+        lib.sw_align_launch.argtypes = [ptr, ptr, *[i32] * 7, ptr, ptr, ptr]
         lib.sw_end_launch.restype = i32
-        lib.sw_end_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr, ptr]
+        lib.sw_end_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr] * 3
         _lib = lib
     return _lib
 
@@ -137,18 +145,19 @@ def _check_inputs(reads, windows, match, gap_open, gap_extend,
         raise ValueError("reads and windows must share the batch size")
     for name, m, width in zip(("read_valid", "window_valid"), masks, (R, W)):
         _check(name, m, (torch.bool, torch.uint8), (B, width))
-    if not 0 < R <= MAX_R:
-        raise ValueError(f"read width {R} outside 1..{MAX_R}")
-    if not 0 < W <= MAX_W:
-        raise ValueError(f"window width {W} outside 1..{MAX_W}")
+    for name, n in (("read", R), ("window", W)):
+        if not 0 < n <= MAX_W:
+            raise ValueError(f"{name} width {n} outside 1..{MAX_W}")
     if gap_open < 0 or gap_extend < 0:
         # the kernel's Gotoh F equals the plain prefix-max F only for
         # open + extend >= extend, and its lanes compute PAD columns outside
         # a pass, which must leave H = 0 (csrc/sw.cu)
         raise ValueError(f"gap_open {gap_open} and gap_extend {gap_extend} "
                          "must be >= 0")
-    if match >= 1 << 16:
-        raise ValueError(f"match {match} >= 2^16 is not supported")
+    if match * min(R, W) >= KEY_BOUND:
+        # the kernel keeps the best as the key H * 32 + (31 - row)
+        raise ValueError(f"match {match} x min(R, W) {min(R, W)} >= 2^26 "
+                         "is not supported")
     for name, t in (("reads", reads), ("windows", windows),
                     *zip(("read_valid", "window_valid"), masks)):
         if not t.is_cuda:
@@ -159,11 +168,19 @@ def _check_inputs(reads, windows, match, gap_open, gap_extend,
     return B, R, W
 
 
-def _launch(fn, args, out: torch.Tensor, device) -> None:
+def _launch(fn, args, shape, out: torch.Tensor, device) -> None:
+    """Launch ``fn`` on ``device``'s current stream; ``shape`` is (B, R, W).
+    Pairs taller than one strip get the strips' boundary rows, (B, 2, W)
+    int2, as scratch."""
     lib = _load()
+    B, R, W = shape
+    scratch = (torch.empty((B, 2, W, 2), dtype=torch.int32, device=device)
+               if R > STRIP_ROWS else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, fn)(*args, out.data_ptr(), stream)
+        err = getattr(lib, fn)(
+            *args, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed: cudaError {err}")
 
@@ -179,7 +196,7 @@ def sw_align_fused_cuda(reads: torch.Tensor, windows: torch.Tensor,
         return out
     _launch("sw_align_launch",
             (reads.data_ptr(), windows.data_ptr(), B, R, W, match, mismatch,
-             gap_open, gap_extend), out, reads.device)
+             gap_open, gap_extend), (B, R, W), out, reads.device)
     launches += 1
     return out
 
@@ -198,7 +215,7 @@ def sw_end_cuda(reads: torch.Tensor, windows: torch.Tensor,
         _launch("sw_end_launch",
                 (reads.data_ptr(), windows.data_ptr(), read_valid.data_ptr(),
                  window_valid.data_ptr(), B, R, W, match, mismatch, gap_open,
-                 gap_extend), out, reads.device)
+                 gap_extend), (B, R, W), out, reads.device)
         end_launches += 1
     return out[0], out[1], out[2]
 

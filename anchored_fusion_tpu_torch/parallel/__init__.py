@@ -1,2 +1,2 @@
-"""Genome k-mer index split into shards (one device; the mesh is not
-ported yet)."""
+"""Multi-device runtime on torch.distributed (process group, (dp, mp) mesh,
+collectives, rank launcher) and the sharded genome index."""

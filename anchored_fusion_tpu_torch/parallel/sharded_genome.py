@@ -9,11 +9,15 @@ aligned against each shard in turn, the best-scoring shard wins per read
 (first maximum on a tie), and the fold to global int64 coordinates happens on
 the host.
 
-Every record equals the JAX package's single-device path
-(``anchored_fusion_tpu/parallel/sharded_genome.py``).  Its batch padding,
-grouped result pulls and jitted per-shard wrappers serve the TPU runtime and
-change no record; the mesh path (the index split over devices) belongs to
-the multi-GPU slice and raises here.
+With a mesh the shards are split over its mp axis: mp rank s builds and
+holds shard s alone, every rank aligns the whole (replicated) batch against
+its shard, and an ``all_gather`` over mp stacks the shards' results in shard
+order, so the best-hit reduce and the multi-hit fold are the one-device ones
+and keep their tie order.
+
+Every record equals the JAX package's (``anchored_fusion_tpu/parallel/
+sharded_genome.py``).  Its batch padding, grouped result pulls and jitted
+per-shard wrappers serve the TPU runtime and change no record.
 """
 
 from __future__ import annotations
@@ -79,17 +83,20 @@ def _build_shard_arrays(codes: np.ndarray, n_shards: int, k: int,
 
 
 def _build_shard_arrays_on_device(codes: np.ndarray, n_shards: int, k: int,
-                                  overlap: int, stride: int, device):
+                                  overlap: int, stride: int, device,
+                                  which=None):
     """Device build (the hg38 path): each shard's codes go to the device
     once, padded with PAD to one width, and are keyed, sorted and tabled
     there (kmer.build_shard_index_device).  Returns ([(KmerIndex, prepadded
-    codes)] per shard, offsets (int64), kb)."""
+    codes)] per shard built, offsets (int64) of all shards, kb); ``which``
+    limits the build to those shard ids."""
     L = len(codes)
     per = -(-L // n_shards)
     kb = bucket_bits_for((per + overlap) // stride, k)
     width = per + overlap
-    shards, offsets = [], []
-    for s in range(n_shards):
+    shards = []
+    offsets = [s * per for s in range(n_shards)]
+    for s in (range(n_shards) if which is None else which):
         lo = s * per
         sl = np.asarray(codes[lo:min(L, lo + width)], np.int8)
         if len(sl) < width:
@@ -102,7 +109,6 @@ def _build_shard_arrays_on_device(codes: np.ndarray, n_shards: int, k: int,
                                  pos_sorted=ps, ref_len=width),
                        _prepadded(dev)))
         del dev
-        offsets.append(lo)
     return shards, np.asarray(offsets, np.int64), kb
 
 
@@ -184,17 +190,22 @@ def _shard_multi(reads, read_offsets, shard, stride: int, max_hits: int,
 
 
 class ShardedGenomeAligner:
-    """Genome alignment over a sharded k-mer index on one device: every
-    chunk is aligned against each shard in turn (module docstring)."""
+    """Genome alignment over a sharded k-mer index: on one device every
+    chunk is aligned against each shard in turn; with ``mesh`` each mp rank
+    holds one shard (``n_shards`` must equal the mp size) and the shards'
+    results are all-gathered (module docstring)."""
 
     def __init__(self, reference: Reference, n_shards: int,
                  cfg: Optional[AlignConfig] = None, overlap: int = 512,
                  mesh=None, device_build: Optional[bool] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedGenomeAligner(mesh=...): the index split over devices "
-                "is not ported yet (ROADMAP.md, 'Multi-GPU')")
+        if mesh is not None and mesh.size(1) != n_shards:
+            raise ValueError(f"n_shards {n_shards} != the mesh's mp size "
+                             f"{mesh.size(1)}")
+        self.mesh = mesh
+        # the shards this rank holds: all of them, or its mp coordinate's
+        self.shard_ids = (list(range(n_shards)) if mesh is None
+                          else [mesh.get_local_rank(1)])
         self.cfg = cfg or AlignConfig()
         self.device = resolve_device(device)
         self.reference = reference
@@ -209,7 +220,7 @@ class ShardedGenomeAligner:
         if device_build:
             self.shards, offs, self.kb = _build_shard_arrays_on_device(
                 codes, n_shards, self.k, overlap, self.index_stride,
-                self.device)
+                self.device, self.shard_ids)
         else:
             keys, pos, tbl, seq, offs, self.kb = _build_shard_arrays(
                 codes, n_shards, self.k, overlap, stride=self.index_stride)
@@ -217,7 +228,7 @@ class ShardedGenomeAligner:
                 (KmerIndex.from_arrays(keys[s], pos[s], tbl[s], self.k,
                                        self.kb, seq.shape[1], self.device),
                  torch.from_numpy(seq[s]).to(self.device))
-                for s in range(n_shards)]
+                for s in self.shard_ids]
         # shard offsets stay on the host in int64: a device-side fold would
         # pass int32 beyond ~2.1 Gbp of genome
         self.host_offs = np.asarray(offs, np.int64)
@@ -249,7 +260,10 @@ class ShardedGenomeAligner:
         offsets = self._offsets(R)
         chunk = _seed_chunk(len(offsets), max_hits, 8192)
         route = cfg.shard_route_top
-        if 0 < route < self.n_shards:
+        if self.mesh is not None:
+            cat, shard = self._align_mesh(seqs, offsets, chunk, top_k,
+                                          max_hits)
+        elif 0 < route < self.n_shards:
             cat, shard = self._align_routed(seqs, offsets, chunk, top_k,
                                             max_hits, route)
         else:
@@ -285,6 +299,30 @@ class ShardedGenomeAligner:
             res = refine_result(res, seqs, self.reference.seq, cfg,
                                 min_score, 0.0, min_seg_len, self.device)
         return res
+
+    def _align_mesh(self, seqs: np.ndarray, offsets, chunk: int, top_k: int,
+                    max_hits: int):
+        """Best hit per read with one shard a rank: this rank's shard's
+        (fields, B) records, all-gathered over mp into shard order and
+        reduced as on one device (first maximum wins).  Returns (host
+        fields, winning shard)."""
+        from anchored_fusion_tpu_torch.parallel.distributed import gather_rows
+        kw = self._kw(top_k, max_hits)
+        B = seqs.shape[0]
+        mine = []
+        for lo in range(0, B, chunk):
+            reads = torch.from_numpy(seqs[lo:lo + chunk]).to(self.device)
+            out = _shard_best(reads, offsets, self.shards[0], **kw)
+            mine.append(torch.stack([out[n].to(torch.int32)
+                                     for n in RESULT_FIELDS]).cpu().numpy())
+        local = (np.concatenate(mine, axis=1) if mine
+                 else np.zeros((len(RESULT_FIELDS), 0), np.int32))
+        S = self.n_shards
+        stack = gather_rows(local[None], [1] * S, self.mesh.get_group(1))
+        cat = {n: v.cpu().numpy() for n, v in _reduce_best(
+            {n: torch.from_numpy(stack[:, i])
+             for i, n in enumerate(RESULT_FIELDS)}).items()}
+        return cat, cat.pop("shard")
 
     def _align_routed(self, seqs: np.ndarray, offsets, chunk: int,
                       top_k: int, max_hits: int, route: int):
@@ -354,7 +392,7 @@ class ShardedGenomeAligner:
         for lo in range(0, B, chunk):
             sub = seqs[lo:lo + chunk]
             reads = torch.from_numpy(sub).to(self.device)
-            for s, sh in enumerate(self.shards):
+            for s, sh in zip(self.shard_ids, self.shards):
                 seg = to_numpy(_shard_multi(reads, offsets, sh, **kw))
                 mh = _flatten_multi(seg, read_lens[lo:lo + len(sub)],
                                     len(sub), top_k, min_score, min_identity,
@@ -364,6 +402,13 @@ class ShardedGenomeAligner:
                     mh, read_id=mh.read_id + lo,
                     ref_start=mh.ref_start + off_s,
                     ref_end=mh.ref_end + off_s))
+        if self.mesh is not None:
+            # one part a chunk here; chunk-major, shard-minor as on one device
+            from anchored_fusion_tpu_torch.parallel.collectives import (
+                gather_objects)
+            per_shard = gather_objects(parts, self.mesh.get_group(1))
+            parts = [p for chunk_parts in zip(*per_shard)
+                     for p in chunk_parts]
         cat = MultiHits(**{
             f.name: np.concatenate([getattr(p, f.name) for p in parts])
             for f in dataclasses.fields(MultiHits)})

@@ -2,7 +2,7 @@
 
 Orchestrates the full per-gene flow of the reference driver
 (Anchored_Fusion.py:123-227) with zero temp files and zero subprocesses —
-all alignment passes are batches on one device, all evidence flows as arrays:
+all alignment passes are device batches, all evidence flows as arrays:
 
   1. anchor alignment (both mates)            ≙ bwa mem -> realign_reads.bam
   2. half-mapped mate rescue vs genome        ≙ samtools -f8/-f4 + bwa mem
@@ -48,20 +48,47 @@ from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 
 _INT32_SAFE = 2**31 - 2**20
+# Per-device budget for a REPLICATED XL index (pos_div + tiled genome +
+# bucket table).  The JAX package sized it for a 16 GiB TPU; the port keeps
+# the value so both pick the same engine (an H100 holds 80 GB).
+_XL_DEVICE_BYTES = 12 * 2**30
 
 
-def genome_engine_kind(total_length: int, index_stride: int) -> str:
-    """Which genome-alignment engine a single-device FusionPipeline needs,
-    by the JAX package's rule without a mesh:
+def _xl_bytes(total_length: int, stride: int, kmer: int) -> int:
+    return (total_length // stride * 4      # pos_div int32
+            + total_length                  # tiled int8 genome (+~0 halo)
+            + ((1 << (2 * kmer)) + 1) * 4)  # bucket table
 
-      'flat'     — genome fits int32;
-      'xl'       — genome past int32, its strided index positions fit;
-      'sharded'  — genome past even the strided capacity.
+
+def genome_engine_kind(total_length: int, index_stride: int,
+                       mesh_mp: int = 0, genome_kmer: int = 13,
+                       device_bytes: int = _XL_DEVICE_BYTES) -> str:
+    """Which genome-alignment engine FusionPipeline selects, by the JAX
+    package's rule (``mesh_mp`` is the mesh's mp size, 0 without a mesh):
+
+      'xl-mesh'      — mesh, genome past int32, and the strided XL index
+                       fits one device (int32 positions, and ``_xl_bytes``
+                       within ``device_bytes`` unless the mesh has no mp
+                       axis to split over): XL replicated, reads split over
+                       every rank;
+      'sharded-mesh' — mesh with mp > 1 and XL not eligible: the k-mer
+                       index splits over mp;
+      'xl'           — one device, genome past int32, strided index fits;
+      'sharded'      — one device, genome past even the strided capacity;
+      'flat'         — genome fits int32 (a dp-only mesh splits its reads).
     """
-    if total_length <= _INT32_SAFE:
-        return "flat"
-    return ("xl" if total_length // max(1, index_stride) < _INT32_SAFE
-            else "sharded")
+    stride = max(1, index_stride)
+    coord_fit = (total_length > _INT32_SAFE
+                 and total_length // stride < _INT32_SAFE)
+    hbm_fit = _xl_bytes(total_length, stride, genome_kmer) <= device_bytes
+    if mesh_mp > 0:
+        if coord_fit and (mesh_mp == 1 or hbm_fit):
+            return "xl-mesh"
+        if mesh_mp > 1:
+            return "sharded-mesh"
+    if total_length > _INT32_SAFE:
+        return "xl" if coord_fit else "sharded"
+    return "flat"
 
 
 @dataclasses.dataclass
@@ -75,29 +102,59 @@ class GeneCallResult:
 
 
 class FusionPipeline:
-    """Holds genome-wide state (genome, exon index, k-mer index) across genes,
-    on one device.  The genome engine follows :func:`genome_engine_kind`."""
+    """Holds genome-wide state (genome, exon index, k-mer index) across genes.
+    The genome engine follows :func:`genome_engine_kind`.
+
+    With ``mesh`` (or a ``cfg.mesh`` that resolves to more than one device,
+    parallel/mesh.py) every rank runs the same calls: each alignment batch
+    is split over the mesh's dp axis, the genome index is replicated or, for
+    the sharded engine, split over mp, and the results are all-gathered, so
+    every rank computes the one-device rows.  ``device`` is this rank's
+    device.  Without a mesh in a multi-process run, ``call_gene`` splits the
+    anchored alignment by process (``host_shard``) and all-gathers it.
+    """
 
     def __init__(self, genome: Reference, exon_index: ExonIndex,
                  gene_rows: Sequence[tuple],
                  cfg: Optional[PipelineConfig] = None,
                  cache_dir: Optional[str] = None,
                  device="cuda",
-                 index=None):
+                 index=None,
+                 mesh=None):
         """``index``: a prebuilt genome KmerIndex for the flat engine (see
         GenomeAligner)."""
         from anchored_fusion_tpu_torch.utils.checkpoint import StageCache
+        from anchored_fusion_tpu_torch.parallel.mesh import mesh_from_config
         self.cfg = cfg or PipelineConfig()
         self.device = resolve_device(device)
         self.genome = genome
         self.exon_index = exon_index
         self.gene_rows = list(gene_rows)
-        kind = genome_engine_kind(genome.total_length,
-                                  self.cfg.align.index_stride)
+        if mesh is None:
+            mesh = mesh_from_config(self.cfg.mesh)
+        self.mesh = mesh
+        kind = genome_engine_kind(
+            genome.total_length, self.cfg.align.index_stride,
+            0 if mesh is None else mesh.size(1),
+            genome_kmer=self.cfg.align.genome_kmer)
         if index is not None and kind != "flat":
             raise ValueError(f"a prebuilt index serves only the flat engine, "
                              f"not {kind!r}")
-        if kind == "xl":
+        if kind == "xl-mesh":
+            # the strided XL index fits one device: replicate it, split
+            # reads over every rank
+            from anchored_fusion_tpu_torch.align.genome_xl import (
+                GenomeAlignerXL)
+            self.genome_aligner = GenomeAlignerXL(genome, self.cfg.align,
+                                                  device=self.device,
+                                                  mesh=mesh)
+        elif kind == "sharded-mesh":
+            from anchored_fusion_tpu_torch.parallel.sharded_genome import (
+                ShardedGenomeAligner)
+            self.genome_aligner = ShardedGenomeAligner(
+                genome, n_shards=mesh.size(1), cfg=self.cfg.align,
+                device=self.device, mesh=mesh)
+        elif kind == "xl":
             # past int32, with strided positions inside it (the hg38
             # operating point): one merged index, one query per chunk
             from anchored_fusion_tpu_torch.align.genome_xl import (
@@ -116,7 +173,7 @@ class FusionPipeline:
         else:
             self.genome_aligner = GenomeAligner(genome, self.cfg.align,
                                                 device=self.device,
-                                                index=index)
+                                                index=index, mesh=mesh)
         self.cache = StageCache(cache_dir)
 
     def call_gene(
@@ -129,12 +186,22 @@ class FusionPipeline:
         score_fn=None,
         homo_genes: Optional[List[str]] = None,
     ) -> GeneCallResult:
-        # 1. anchor alignment
+        # 1. anchor alignment: split over the mesh's dp axis, or by process
+        # when a multi-process run has no mesh
+        from anchored_fusion_tpu_torch.parallel import distributed
         t0 = time.time()
         seqs = reads.seq.reshape(reads.n_pairs * 2, reads.max_len)
-        res = align_to_reference(seqs, anchor_codes, self.cfg.align,
-                                 chunk=self.cfg.read_batch,
-                                 device=self.device)
+        if distributed.world_size() > 1 and self.mesh is None:
+            sl = distributed.host_shard(reads.n_pairs)
+            res_l = align_to_reference(seqs[2 * sl.start:2 * sl.stop],
+                                       anchor_codes, self.cfg.align,
+                                       chunk=self.cfg.read_batch,
+                                       device=self.device)
+            res = distributed.allgather_alignment(res_l, reads.n_pairs)
+        else:
+            res = align_to_reference(seqs, anchor_codes, self.cfg.align,
+                                     chunk=self.cfg.read_batch,
+                                     device=self.device, mesh=self.mesh)
         return self._call_stages(gene_name, anchor_codes, reads, res,
                                  out_prefix, scores, score_fn, homo_genes,
                                  t0=t0, align_s=time.time() - t0)
@@ -177,7 +244,7 @@ class FusionPipeline:
         offs = np.cumsum([0] + [p.shape[0] for p in parts])
         res_all = align_to_reference(np.concatenate(parts), anchor_codes,
                                      self.cfg.align, chunk=self.cfg.read_batch,
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
         align_s = time.time() - t0
         out: Dict[str, GeneCallResult] = {}
         homo = None
@@ -343,7 +410,7 @@ class FusionPipeline:
                                   gene_name, ccfg)
         counters["split_reads"] = len(srs)
         clusters = merge_clusters(cluster_split_reads(srs), ccfg,
-                                  device=self.device)
+                                  device=self.device, mesh=self.mesh)
         counters["breakpoint_clusters"] = len(clusters)
         _mark("consensus")
 

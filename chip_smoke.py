@@ -53,13 +53,27 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              that must give the same rows and scores; that the C codec
              decoded both FASTQ files; and the config-2 run once more in
              this process (``bulk.main``) on cuda, with the SW kernel's
-             inputs captured, and on cpu: same rows, scores within
-             FILTER_TOL
+             inputs captured: same rows, scores within FILTER_TOL
   sc_cli     ``python -m anchored_fusion_tpu_torch.cli.sc`` on the cli
              genome with 24 cells of 5,000 pairs (.fastq.gz, 6 with the
              fusion), filter off and then on with the cli phase's model: rc,
              run_stats.json stage seconds, the fusion's aggregate row (6
              cells, by name) and its per-cell Natural_score
+  bilstm     the bi-LSTM filter variant (cuDNN LSTMs): the forward on cuda
+             against the same weights on cpu (bound 2e-4), scoring rows/s,
+             training steps/s at batch 500, peak device memory, and the SVM
+             variant's featurize shape (its sklearn training is host code
+             and not run: the card's machine has no sklearn)
+  mesh       the multi-device runtime as 2 ranks on this one card over gloo
+             (parallel/launch.py, with a deadline): call_gene under
+             MeshConfig(dp_size=2) on the main_path genome and pairs (rows
+             equal to main_path's), the engines phase's reads through the
+             flat engine on a (2, 1) mesh and the XL and sharded engines on
+             (1, 2) (records equal to one device), the filter trained on
+             (2, 1) and (1, 2) meshes (probe scores within 2e-2 and 5e-2 of
+             one rank); then the bulk CLI (config 2) and the single-cell CLI
+             (filter off) each as 2 processes given --coordinator,
+             --num_procs and --proc_id, against the one-process runs
   xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
@@ -74,7 +88,8 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              and plain time on the main path's own inputs (sw_end, which
              call_gene does not call, with random masks); sw_align_fused is
              also held equal to the plain SW on every batch the in-process
-             cli run, xl_path and sc_path handed it
+             cli run, xl_path and sc_path handed it; the launches in the
+             mesh phase's ranks and the long-row times are added
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -122,6 +137,9 @@ KERNEL_SHAPES = [(30, 128, 160, 101), (64, 128, 160, 101),
                  (1000, 128, 160, 101), (4096, 128, 160, 101),
                  (1000, 101, 133, 101), (1000, 256, 288, 250),
                  (64, 1024, 1056, 1000)]
+# (B, R) of the long-row batches, past one strip of 1,024 rows, with
+# windows W = R + 2 x AlignConfig.band_half_width as refinement builds them
+LONG_SHAPES = [(256, 1152), (128, 2048), (64, 4096)]
 
 
 def _rows(x):
@@ -130,7 +148,7 @@ def _rows(x):
     return torch.stack(x) if isinstance(x, tuple) else x
 
 
-def sw_case(kind: str, reads, wins, masks=None) -> dict:
+def sw_case(kind: str, reads, wins, masks=None, plain_reps: int = 3) -> dict:
     """Run one batch through the kernel and its plain version: equality,
     launches, times and bounds.  ``masks`` selects the forward-only entry."""
     import torch
@@ -164,7 +182,8 @@ def sw_case(kind: str, reads, wins, masks=None) -> dict:
     return {"kind": kind, "B": reads.shape[0], "R": reads.shape[1],
             "W": wins.shape[1], "equal": equal,
             "max_abs_err": int((got - want).abs().max()) if got.numel() else 0,
-            "kernel_ms": kernel_ms, "plain_ms": swb.time_ms(plain, 3),
+            "kernel_ms": kernel_ms, "plain_ms": swb.time_ms(plain,
+                                                            plain_reps),
             "bound_ms": bound,
             "bound_ms_12op": swb.bound_ms(cells, nbytes,
                                           swb.PLAIN_OPS_PER_CELL),
@@ -175,10 +194,13 @@ def phase_kernel():
     """Build the SW kernel, print each instantiation's registers and spills,
     and hold both entries equal to their plain versions: random batches at
     KERNEL_SHAPES, a tie-heavy batch, and the forward-only entry with random
-    masks."""
+    masks; then at LONG_SHAPES, rows walked in strips, random and tie-heavy
+    pairs through the fused entry and random masks through the forward-only
+    one.  Returns the long-row records."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.config import AlignConfig
     from anchored_fusion_tpu_torch.ops import sw_cuda
 
     t0 = time.time()
@@ -193,9 +215,19 @@ def phase_kernel():
     reads, wins = swb.sw_inputs(rng, 1000, 128, 160, 101)
     cases.append(("masked", *cuda(reads, wins),
                   cuda(*swb.random_masks(rng, reads, wins))))
+    band = AlignConfig().band_half_width
+    for B, R in LONG_SHAPES:
+        W = R + 2 * band
+        reads, wins = swb.sw_inputs(rng, B, R, W, R - 7)
+        cases += [("long_random", *cuda(reads, wins), None),
+                  ("long_ties", *cuda(*swb.tie_inputs(rng, B, R, W, R - 7)),
+                   None),
+                  ("long_masked", *cuda(reads, wins),
+                   cuda(*swb.random_masks(rng, reads, wins)))]
     results = []
     for kind, r, w, masks in cases:
-        rec = sw_case(kind, r, w, masks)
+        rec = sw_case(kind, r, w, masks,
+                      plain_reps=1 if kind.startswith("long") else 3)
         results.append(rec)
         if not all(rec["equal"]) or rec["launches"] != 1:
             emit({"phase": "kernel", "build_s": build_s, "shapes": results})
@@ -205,6 +237,7 @@ def phase_kernel():
     emit({"phase": "kernel", "name": "sw_align_fused, sw_end",
           "library": os.path.basename(so), "build_s": round(build_s, 3),
           "ptxas": sw_cuda.ptxas_usage(), "shapes": results})
+    return [r for r in results if r["kind"].startswith("long")]
 
 
 def _timeless(counters: dict) -> dict:
@@ -558,7 +591,8 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
                                    out_prefix=os.path.join(tmpdir, "again"))
     world = {"pipe": pipe, "genome": genome, "sg": sg, "anchor": anchor,
              "partner": partner, "decoy": decoy, "break5": break5,
-             "anchor_codes": anchor_codes}
+             "anchor_codes": anchor_codes, "rows": res.rows,
+             "counters": _timeless(c)}
     return rec, captured, rerun, world
 
 
@@ -784,8 +818,8 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
 
 
 def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
-                                cli_captured, xl: dict,
-                                sc: dict) -> list[dict]:
+                                cli_captured, xl: dict, sc: dict,
+                                mesh: dict, long_rows: list) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
@@ -793,7 +827,8 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
     plain SW on every batch of the in-process cli run, and ``xl`` and
     ``sc`` hold its check on every batch of xl_path and of sc_path
     (check_batches).  The entries of the kernels line, with the launches of
-    main_path, of the cli phase, of xl_path and of sc_path."""
+    main_path, of the cli phase, of xl_path, of sc_path and of the mesh
+    phase's ranks, and the kernel phase's long-row batches."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -830,6 +865,15 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
                                 else "sw_end_launches"],
             "xl_launches": xl["launches"] if fused else xl["end_launches"],
             "sc_launches": sc["launches"] if fused else sc["end_launches"],
+            "mesh_launches": (mesh["pipeline"]["sw_launches"] if fused else
+                              sum(v["sw_end_launches"] for k, v in
+                                  mesh["pipeline"].items()
+                                  if k.startswith("rank"))),
+            "long_rows": [{k: r[k] for k in ("kind", "B", "R", "W",
+                                             "kernel_ms", "plain_ms",
+                                             "bound_ms", "launches")}
+                          for r in long_rows
+                          if (r["kind"] == "long_masked") != fused],
             "max_abs_err": err,
             "ms": sum(r["kernel_ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -1233,7 +1277,7 @@ def phase_cli(tmpdir: str):
     the predictions.  Then BASELINE config 2: a rerun with
     --not_train_filter_model on the saved model must give the same rows and
     scores.  The config-2 run once more in this process, on cuda with the SW
-    kernel's inputs captured and on cpu, must give them too.  Fails if the
+    kernel's inputs captured, must give them too.  Fails if the
     filter turned itself off or the C codec did not decode the FASTQ files.
     Returns (record, the SW batches of the in-process cuda run, the
     inputs)."""
@@ -1264,8 +1308,8 @@ def phase_cli(tmpdir: str):
         here = run_cli_here(inp, os.path.join(d, "here_cuda"), run_dir,
                             config2, "cuda")
         here_launches = sw_cuda.launches
-    on_cpu = run_cli_here(inp, os.path.join(d, "here_cpu"), run_dir,
-                          config2, "cpu")
+    # the config-2 run (the mesh phase's reference)
+    inp["config2"] = (config2, os.path.join(d, "load"), run_dir)
 
     expected = f"{inp['anchor']}--{inp['partner']}"
     where = f"{inp['anchor']}:{inp['break5']}"
@@ -1284,14 +1328,13 @@ def phase_cli(tmpdir: str):
         full_width = True
     rerun_same, rerun_diff = same_calls(first, second)
     here_same, here_diff = same_calls(second, here)
-    cpu_same, cpu_diff = same_calls(here, on_cpu)
     stage = lambda r: {k: v for k, v in r["stats"].items()  # noqa: E731
                        if k.startswith(("time.", "rate."))}
     launches = first["stats"].get("kernel_launches", {})
     rerun_launches = second["stats"].get("kernel_launches", {})
     epochs = sum(1 for ln in first["stdout"].splitlines()
                  if ln.startswith("epoch "))
-    runs = (first, second, here, on_cpu)
+    runs = (first, second, here)
     off = [m for m in ("not performing filter", "filter disabled")
            if any(m in r["stdout"] for r in runs)]
     rec = {"phase": "cli", "device": "cuda", "rc": first["rc"],
@@ -1319,10 +1362,11 @@ def phase_cli(tmpdir: str):
            "here_sw_launches": here_launches,
            "here_sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
            "here_rows_equal": here_same, "here_max_score_diff": here_diff,
-           "cpu_rc": on_cpu["rc"], "cpu_wall_s": on_cpu["wall_s"],
-           "cpu_stage_s": stage(on_cpu), "cpu_rows_equal": cpu_same,
-           "cpu_max_score_diff": cpu_diff,
-           "filter_off_messages": off, "cut": None}
+           "filter_off_messages": off,
+           # cut to make room for the kernel's long rows and the mesh phase:
+           # the config-2 run on the host CPU (132 s on the card's host); the
+           # parity phase holds cuda against cpu on its fixtures
+           "cut": "config-2 rerun on cpu"}
     emit(rec)
     problems = []
     if any(r["rc"] for r in runs):
@@ -1336,8 +1380,7 @@ def phase_cli(tmpdir: str):
     if epochs != cfg.num_epochs or not full_width:
         problems.append(f"{epochs} epochs, full width {full_width}")
     for name, same, diff in (("config-2 rerun", rerun_same, rerun_diff),
-                             ("in-process cuda run", here_same, here_diff),
-                             ("cpu run", cpu_same, cpu_diff)):
+                             ("in-process cuda run", here_same, here_diff)):
         if not same or diff is None or diff > FILTER_TOL:
             problems.append(f"{name} differs (max score diff {diff})")
     if not rec["sw_launches"]:
@@ -1632,7 +1675,14 @@ def phase_engines(genome) -> dict:
     if not all(index_equal.values()):
         raise AssertionError(f"device index build != host build: "
                              f"{index_equal}")
-    return rec
+    # the mesh phase's references: one device, the sharded engine with the
+    # two shards a (1, 2) mesh holds
+    sh2 = ShardedGenomeAligner(genome, 2, cfg, device="cuda",
+                               device_build=True)
+    out["sharded2"] = sh2.align(reads)
+    del sh2
+    torch.cuda.empty_cache()
+    return rec, {k: out[k] for k in ("flat", "xl", "sharded2")}
 
 
 def _call_record(res, wall_s: float, launches: int, break5: int) -> dict:
@@ -1915,6 +1965,372 @@ def phase_xl_path(tmpdir: str) -> dict:
     return rec, captured, launches
 
 
+# ------------------------------------------------------------ bi-LSTM
+
+BILSTM_BATCH = 500     # train_bilstm's default batch
+BILSTM_TOL = 2e-4
+
+
+def phase_bilstm() -> dict:
+    """The bi-LSTM filter variant on the card: P(class 1) of FILTER_ROWS
+    random junction rows on cuda against the same weights on cpu (cuDNN's
+    and the host's LSTM in full float32), scoring rows/s, training steps/s
+    at BILSTM_BATCH, peak device memory; the SVM variant's featurize."""
+    import copy
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.models.bilstm import (
+        BiLSTMFilter, encode_61, init_like_flax_, train_step)
+    from anchored_fusion_tpu_torch.models.svm import featurize
+
+    rng = np.random.default_rng(9)
+    rows = junction_rows(rng, FILTER_ROWS)
+    model = BiLSTMFilter()
+    init_like_flax_(model, torch.Generator().manual_seed(0))
+    model.eval()
+    on_cpu = copy.deepcopy(model)
+    model.cuda()
+    tok = torch.from_numpy(encode_61(rows))
+    tok_dev = tok.cuda()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = model(tok_dev)[:, 1].cpu()
+            want = on_cpu(tok)[:, 1]
+        diff = float((got - want).abs().max())
+        with torch.no_grad():
+            score_ms = swb.time_ms(lambda: model(tok_dev), 5)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = tok_dev[:BILSTM_BATCH]
+        y = torch.from_numpy(rng.integers(0, 2, BILSTM_BATCH)).cuda()
+        for _ in range(3):
+            train_step(model, opt, x, y, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = 20
+        t0 = time.time()
+        for _ in range(steps):
+            train_step(model, opt, x, y, gen)
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / steps
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    feats = featurize(rows[:256])
+    rec = {"phase": "bilstm", "device": "cuda", "rows": FILTER_ROWS,
+           "max_abs_diff": diff, "tolerance": BILSTM_TOL, "tf32": False,
+           "score_ms": score_ms,
+           "score_rows_per_s": FILTER_ROWS / (score_ms / 1e3),
+           "train_batch": BILSTM_BATCH, "train_step_s": step_s,
+           "train_steps_per_s": 1.0 / step_s, "peak_device_bytes": peak,
+           "featurize_shape": list(feats.shape),
+           "svm_training": "not run: scikit-learn is host code and absent "
+                           "on this machine"}
+    emit(rec)
+    if not diff <= BILSTM_TOL or list(feats.shape) != [256, 305]:
+        raise AssertionError(f"bilstm: cuda vs cpu {diff}, featurize "
+                             f"{feats.shape}")
+    return rec
+
+
+# ------------------------------------------------------------ mesh
+
+MESH_RANKS = 2           # ranks on the one card, over gloo
+MESH_EPOCHS = 2
+MESH_DP_TOL = 2e-2       # the JAX trainer's own tolerances
+MESH_TP_TOL = 5e-2
+MESH_DEADLINE_S = 600
+
+
+def mesh_training_data():
+    """filter_training_run's data (the shipped positives, random rows as
+    negatives) and a probe of 256 rows of each kind."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.models import data as fdata
+    positives = fdata.read_junction_file(
+        os.path.join(HERE, "data", "positive_samples.txt"))
+    negatives = junction_rows(np.random.default_rng(8),
+                              CLI_ARTIFACT_GENE_PAIRS)
+    return positives, negatives, positives[:256] + negatives[:256]
+
+
+def mesh_train(mesh, device) -> tuple:
+    """train_filter_model at full width for MESH_EPOCHS on
+    mesh_training_data; (probe scores, best AUC)."""
+    import dataclasses as dc
+    import numpy as np
+    from anchored_fusion_tpu_torch.config import FilterModelConfig
+    from anchored_fusion_tpu_torch.models.train import (
+        score_junctions, train_filter_model)
+    pos, neg, probe = mesh_training_data()
+    cfg = dc.replace(FilterModelConfig(), num_epochs=MESH_EPOCHS)
+    f = train_filter_model(pos, neg, cfg, verbose=False, mesh=mesh,
+                           device=device)
+    return np.asarray(score_junctions(f, probe)), f.best_auc
+
+
+def mesh_worker(art: dict) -> dict:
+    """One rank of the mesh phase (parallel/launch.py runs it on every rank
+    of a gloo group on this card): the pipeline under MeshConfig(dp_size=2),
+    the three engines on their meshes, the filter trained on (2, 1) and
+    (1, 2).  Only rank 0 returns the records.  ``art`` may name another
+    "device" and smaller "genome_bp", "n_pairs" and "check_reads" (a CPU
+    rehearsal)."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.align.genome import GenomeAligner
+    from anchored_fusion_tpu_torch.align.genome_xl import GenomeAlignerXL
+    from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
+    from anchored_fusion_tpu_torch.config import (
+        AlignConfig, MeshConfig, PipelineConfig)
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+    from anchored_fusion_tpu_torch.ops.encode import encode_ascii
+    from anchored_fusion_tpu_torch.parallel import distributed
+    from anchored_fusion_tpu_torch.parallel.mesh import make_mesh
+    from anchored_fusion_tpu_torch.parallel.sharded_genome import (
+        ShardedGenomeAligner)
+    from anchored_fusion_tpu_torch.pipeline import FusionPipeline
+    from anchored_fusion_tpu_torch.state import kmer_index_from_numpy
+
+    dev = distributed.local_device(art.get("device"))
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.set_device(dev)
+    rank = distributed.rank()
+    out = {"rank": rank, "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    t0 = time.time()
+    sg, genome, anchor, _, _, _, batch = main_path_inputs(
+        art.get("genome_bp", GENOME_BP), art.get("n_pairs", N_PAIRS))
+    ix = art["index"]
+    index = kmer_index_from_numpy(
+        np.load(ix["keys"], mmap_mode="r"), np.load(ix["pos"], mmap_mode="r"),
+        np.load(ix["table"], mmap_mode="r"), ix["k"], ix["kb"], ix["ref_len"],
+        device=dev)
+    pipe = FusionPipeline(genome, ExonIndex(sg.gtf_dic, inject_loci=False),
+                          sg.gene_rows(),
+                          PipelineConfig(filter_false_positive=False,
+                                         mesh=MeshConfig(dp_size=2)),
+                          device=dev, index=index)
+    out["setup_s"] = time.time() - t0
+    codes = encode_ascii(anchor.transcript(sg.genome))
+    distributed.barrier()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sw_cuda.launches = sw_cuda.end_launches = 0
+    t0 = time.time()
+    res = pipe.call_gene(anchor.name, codes, batch, out_prefix=os.path.join(
+        art["tmp"], f"mesh_rank{rank}"))
+    sync()
+    call_s = time.time() - t0
+    c = res.counters
+    out["pipeline"] = {
+        "rows": res.rows, "counters": _timeless(c), "call_gene_s": call_s,
+        "anchor_align_s": c["time.anchor_align_s"],
+        "rank_reads": c["reads"] // MESH_RANKS,
+        "sw_launches": sw_cuda.launches, "sw_end_launches":
+        sw_cuda.end_launches, "mesh": list(pipe.mesh.mesh.shape),
+        "peak_device_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None)}
+    del pipe, index, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    cfg = AlignConfig(gapped_refine=False, index_stride=2)
+    reads, _, _ = sample_reads(np.random.default_rng(3), genome.seq,
+                               art.get("check_reads", CHECK_READS))
+    engines = {}
+    for name, shape, make in (
+            ("flat", (2, 1), lambda m: GenomeAligner(
+                genome, cfg, device=dev, device_build=True, mesh=m)),
+            ("xl", (1, 2), lambda m: GenomeAlignerXL(genome, cfg, device=dev,
+                                                     mesh=m)),
+            ("sharded2", (1, 2), lambda m: ShardedGenomeAligner(
+                genome, 2, cfg, device=dev, device_build=True, mesh=m))):
+        t0 = time.time()
+        eng = make(make_mesh(shape))
+        sync()
+        build_s = time.time() - t0
+        t0 = time.time()
+        r = eng.align(reads)
+        align_s = time.time() - t0
+        del eng
+        engines[name] = {"mesh": list(shape), "build_s": build_s,
+                         "align_s": align_s,
+                         "records": ({f.name: getattr(r, f.name) for f in
+                                      dataclasses.fields(r)}
+                                     if rank == 0 else None)}
+    out["engines"] = engines
+    out["train"] = {}
+    for tag, shape in (("dp", (2, 1)), ("tp", (1, 2))):
+        t0 = time.time()
+        scores, auc = mesh_train(make_mesh(shape), dev)
+        out["train"][tag] = {"mesh": list(shape), "wall_s": time.time() - t0,
+                             "scores": scores, "best_auc": auc}
+    return out
+
+
+def run_cluster(args: list, cwd: str, timeout: float) -> list:
+    """``python -m <args>`` as MESH_RANKS processes of one cluster on this
+    card, given --coordinator/--num_procs/--proc_id; with a deadline, every
+    process killed if one fails.  Returns (rc, stdout, wall s) a process."""
+    from anchored_fusion_tpu_torch.parallel.launch import free_port
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", *args, "--coordinator", coord, "--num_procs",
+         str(MESH_RANKS), "--proc_id", str(i)], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(MESH_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, timeout - (time.time() - t0))
+            outs.append((p.communicate(timeout=left)[0], time.time() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, w) for p, (o, w) in zip(procs, outs)]
+
+
+def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
+               sc_rec: dict) -> dict:
+    """The multi-device runtime on this card: mesh_worker on MESH_RANKS
+    ranks over gloo (NCCL refuses two ranks on one device), then the bulk
+    and single-cell CLIs as clusters of MESH_RANKS processes.  Returns the
+    record and the ranks' SW launches on the pipeline call."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.time()
+    ranks = run_ranks(os.path.join(HERE, "chip_smoke.py") + ":mesh_worker",
+                      MESH_RANKS, ({**art, "tmp": tmpdir},), device="cuda",
+                      timeout=MESH_DEADLINE_S, threads=4)
+    worker_s = time.time() - t0
+    problems = []
+    r0 = ranks[0]
+    pipe = {}
+    for r in ranks:
+        p = r["pipeline"]
+        if p["rows"] != art["rows"] or p["counters"] != art["counters"]:
+            problems.append(f"rank {r['rank']}: call_gene rows differ")
+        if not p["sw_launches"]:
+            problems.append(f"rank {r['rank']}: no SW launch")
+        pipe[f"rank{r['rank']}"] = {
+            k: p[k] for k in ("call_gene_s", "anchor_align_s", "rank_reads",
+                              "sw_launches", "sw_end_launches", "mesh",
+                              "peak_device_bytes")}
+        pipe[f"rank{r['rank']}"]["anchored_reads_per_s"] = (
+            p["rank_reads"] / max(p["anchor_align_s"], 1e-9))
+    engines = {}
+    for name, e in r0["engines"].items():
+        ref = refs[name]
+        differing = {f: int((np.asarray(e["records"][f])
+                             != np.asarray(getattr(ref, f))).sum())
+                     for f in e["records"]}
+        engines[name] = {"mesh": e["mesh"], "build_s": e["build_s"],
+                         "align_s": e["align_s"],
+                         "align_reads_per_s": CHECK_READS / e["align_s"],
+                         "differing": differing}
+        if any(differing.values()):
+            problems.append(f"{name} on its mesh differs from one device")
+    one_scores, one_auc = mesh_train(None, "cuda")
+    train = {"one_rank_best_auc": one_auc}
+    for tag, tol in (("dp", MESH_DP_TOL), ("tp", MESH_TP_TOL)):
+        t = r0["train"][tag]
+        d = float(np.abs(t["scores"] - one_scores).max())
+        ranks_equal = all(np.array_equal(r["train"][tag]["scores"],
+                                         t["scores"]) for r in ranks)
+        train[tag] = {"mesh": t["mesh"], "wall_s": t["wall_s"],
+                      "best_auc": t["best_auc"], "max_abs_diff": d,
+                      "tolerance": tol, "ranks_equal": ranks_equal}
+        if not d <= tol or not ranks_equal:
+            problems.append(f"training on {t['mesh']}: {d} vs {tol}")
+
+    # the bulk CLI, config 2, as a cluster against the one-process run
+    config2, one_out, run_dir = cli_inp["config2"]
+    out = os.path.join(tmpdir, "cli", "cluster")
+    bulk = run_cluster([f"{PKG}.cli.bulk", *cli_argv(cli_inp, out, config2)],
+                       run_dir, MESH_DEADLINE_S)
+    with open(one_out + ".log") as fh:
+        one = {"stdout": fh.read(), **cli_outputs(cli_inp, one_out)}
+    two = {"stdout": bulk[0][1], **cli_outputs(cli_inp, out)}
+    bulk_same, bulk_diff = same_calls(one, two)
+    if any(rc for rc, _, _ in bulk) or not bulk_same or bulk_diff is None \
+            or bulk_diff > FILTER_TOL:
+        problems.append(f"bulk cluster: rc {[b[0] for b in bulk]}, rows "
+                        f"equal {bulk_same}, score diff {bulk_diff}")
+
+    # the single-cell CLI, filter off, as a cluster against sc_cli's run
+    p = cli_inp["paths"]
+    gene = cli_inp["anchor"]
+    cells = os.path.join(tmpdir, "sc_cli", "cells")
+    out_sc = os.path.join(tmpdir, "sc_cli", "cluster")
+    sc = run_cluster([f"{PKG}.cli.sc", "--file_anchored_cds", p["anchor"],
+                      "--gene_names", p["names"], "--fastq_dir", cells,
+                      "--file_ref_seq", p["genome"], "--file_ref_ann",
+                      p["gtf"], "--out_folder", out_sc,
+                      "--not_filter_false_positive"], run_dir,
+                     MESH_DEADLINE_S)
+    name = f"{gene}_fusion_gene_cell_predictions_abridged.txt"
+    texts = []
+    for folder in (os.path.join(tmpdir, "sc_cli", "filter_off"), out_sc):
+        path = os.path.join(folder, gene, name)
+        texts.append(open(path).read() if os.path.exists(path) else None)
+    expected = f"{gene}--{cli_inp['partner']}"
+    where = f"{gene}:{cli_inp['break5']}"
+    agg = [r for r in (ln.split("\t") for ln in (texts[1] or "").splitlines())
+           if r[0] == expected and r[2] == where]
+    sc_same = texts[0] is not None and texts[0] == texts[1]
+    if any(rc for rc, _, _ in sc) or not sc_same or not agg \
+            or agg[0] != sc_rec["filter_off"]["aggregate_row"]:
+        problems.append(f"sc cluster: rc {[x[0] for x in sc]}, aggregate "
+                        f"equal {sc_same}")
+
+    rec = {"phase": "mesh", "ranks": MESH_RANKS, "devices": sorted(
+               {r["device"] for r in ranks}),
+           "backend": r0["backend"], "worker_s": worker_s,
+           "setup_s": r0["setup_s"],
+           "pipeline": {"mesh": r0["pipeline"]["mesh"],
+                        "rows_equal": not any("rows differ" in x
+                                              for x in problems),
+                        "sw_launches": sum(r["pipeline"]["sw_launches"]
+                                           for r in ranks),
+                        **pipe},
+           "engines": engines, "train": train,
+           "bulk_cli": {"rc": [b[0] for b in bulk],
+                        "wall_s": [b[2] for b in bulk],
+                        "rows_equal": bulk_same,
+                        "max_score_diff": bulk_diff},
+           "sc_cli": {"rc": [x[0] for x in sc], "wall_s": [x[2] for x in sc],
+                      "aggregate_equal": sc_same,
+                      "aggregate_row": agg[0] if agg else None}}
+    emit(rec)
+    if problems:
+        raise AssertionError("mesh: " + "; ".join(problems))
+    return rec
+
+
+def main_path_index(world: dict, tmpdir: str) -> dict:
+    """main_path's genome index arrays saved for the mesh phase's ranks."""
+    import numpy as np
+    idx = world["pipe"].genome_aligner.index
+    paths = {}
+    for name in ("keys", "pos", "table"):
+        t = {"keys": idx.keys_sorted, "pos": idx.pos_sorted,
+             "table": idx.table}[name]
+        paths[name] = os.path.join(tmpdir, f"main_index_{name}.npy")
+        np.save(paths[name], t.cpu().numpy())
+    return {**paths, "k": idx.k, "kb": idx.kb, "ref_len": idx.ref_len}
+
+
 def check_batches(captured) -> dict:
     """The fused SW kernel against its plain version on every captured
     batch (launches made here are not counted on any path)."""
@@ -1964,7 +2380,7 @@ def main() -> int:
         emit({"phase": "device", "nvidia_smi": smi, "name": kind,
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        run("kernel", phase_kernel)
+        long_rows = run("kernel", phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
             run("parity", phase_parity, tmp)
             rec, captured, rerun, world = run("main_path", phase_main_path,
@@ -1974,15 +2390,21 @@ def main() -> int:
             sc, sc_captured, sc_launches = run("sc_path", phase_sc_path, tmp,
                                                world)
             genome = world["genome"]
+            art = {"index": main_path_index(world, tmp),
+                   "rows": world["rows"], "counters": world["counters"]}
             del world
             gc.collect()
             torch.cuda.empty_cache()
-            run("engines", phase_engines, genome)
+            _, refs = run("engines", phase_engines, genome)
             del genome
             run("filter", phase_filter)
+            run("bilstm", phase_bilstm)
             cli, cli_captured, cli_inp = run("cli", phase_cli, tmp)
-            run("sc_cli", phase_sc_cli, tmp, cli_inp)
-            del cli_inp
+            sc_cli = run("sc_cli", phase_sc_cli, tmp, cli_inp)
+            mesh = run("mesh", phase_mesh, tmp, art, refs, cli_inp, sc_cli)
+            del cli_inp, refs, art
+            gc.collect()
+            torch.cuda.empty_cache()
             xl, xl_captured, xl_launches = run("xl_path", phase_xl_path, tmp)
         xl_check = {**check_batches(xl_captured), "launches": xl_launches,
                     "end_launches": xl["sw_end_launches"]}
@@ -1990,7 +2412,7 @@ def main() -> int:
                     "end_launches": sc["sw_end_launches"]}
         kernels = kernels_on_main_path_inputs(captured, rec, cli,
                                               cli_captured, xl_check,
-                                              sc_check)
+                                              sc_check, mesh, long_rows)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})

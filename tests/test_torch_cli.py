@@ -347,6 +347,45 @@ def test_bulk_cli_filter_off_byte_identical(cli_inputs, tmp_path, capsys,
     assert f"time.call:{anchor.name}_s" in stats
 
 
+@pytest.fixture(scope="module")
+def wildtype_cli_inputs(tmp_path_factory):
+    """The wild-type-only fixture of tests/test_torch_pipeline.py (200 pairs
+    of the anchor's own transcript, seed 13) as CLI input files."""
+    d = tmp_path_factory.mktemp("cli_wt")
+    sg = make_synthetic_genome(np.random.default_rng(11), n_genes=6,
+                               exons_per_gene=(3, 5), exon_len=(250, 400))
+    anchor = [g for g in sg.genes.values() if g.strand == "+"][0]
+    tx_a = anchor.transcript(sg.genome)
+    names, r1, r2 = simulate_pairs(np.random.default_rng(13), tx_a, 200,
+                                   name_prefix="WT")
+    write_fastq_pair(str(d / "r_1.fastq"), str(d / "r_2.fastq"), names, r1, r2)
+    write_gtf(sg, str(d / "ann.gtf"))
+    write_fasta({"chr1": sg.genome.fetch_str("chr1", 1,
+                                             sg.genome.total_length)},
+                str(d / "genome.fa"))
+    write_fasta({f"NM_000001.1 {anchor.name}": tx_a}, str(d / "anchor.fa"))
+    (d / "names.txt").write_text(anchor.name + "\n")
+    argv = ["--file_anchored_cds", str(d / "anchor.fa"),
+            "--gene_names", str(d / "names.txt"),
+            "--fastq1", str(d / "r_1.fastq"), "--fastq2", str(d / "r_2.fastq"),
+            "--file_ref_seq", str(d / "genome.fa"),
+            "--file_ref_ann", str(d / "ann.gtf")]
+    return d, argv, anchor, None, None
+
+
+def test_bulk_cli_wildtype_byte_identical(wildtype_cli_inputs, tmp_path,
+                                          capsys, monkeypatch):
+    """Wild-type reads only, filter off: the same rows (none is a fusion
+    of the anchor with another gene) and byte-identical files."""
+    _, _, anchor, _, _ = wildtype_cli_inputs
+    out = _run_both(wildtype_cli_inputs, tmp_path, capsys, monkeypatch,
+                    ["--not_filter_false_positive"])
+    (jrc, jrows, jfiles, _), (rc, rows, files, _) = out["jax"], out["port"]
+    assert rc == jrc == 0
+    assert rows == jrows
+    assert files == jfiles and files[".txt"].startswith("Fusion_gene")
+
+
 def test_bulk_cli_forced_xl_byte_identical(cli_inputs, tmp_path, capsys,
                                            monkeypatch):
     """The bulk CLI on the XL engine (both pipelines' int32 limit lowered
@@ -431,8 +470,19 @@ def test_bulk_cli_refuses_what_is_not_ported(cli_inputs, tmp_path):
     assert common.device_for(ns(gpu_number="2"), device="cpu") == "cpu"
     _, argv, _, _, _ = cli_inputs
     base = argv + ["--out_folder", str(tmp_path), "--not_filter_false_positive"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bulk.main(base + ["--coordinator", "localhost:1"], device="cpu")
+    # the cluster flags reach the runtime (a one-process cluster here)
+    from anchored_fusion_tpu_torch.parallel import distributed
+    calls = []
+    init = distributed.initialize
+    distributed.initialize = lambda *a, **kw: calls.append((a, kw)) or False
+    try:
+        assert bulk.main(argv + ["--out_folder", str(tmp_path / "cluster"),
+                                 "--not_filter_false_positive",
+                                 "--coordinator", "localhost:1", "--num_procs",
+                                 "1", "--proc_id", "0"], device="cpu") == 0
+    finally:
+        distributed.initialize = init
+    assert calls == [(("localhost:1", 1, 0), {"device": "cpu"})]
     if not torch.cuda.is_available():
         # no device named and no CUDA: stop at once, write nothing
         assert bulk.main(base) == bulk.EXIT_NO_DEVICE

@@ -388,5 +388,9 @@ def test_entry_points_need_cuda_or_cpu(small_filters, tmp_path):
         tf.save(path)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TrainedFilter.load(path, tcfg, 201)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_filter_model(lines, lines, tcfg, mesh=object(), device="cpu")
+    # the tensor-parallel rule picks the weights JAX's rule picks
+    from anchored_fusion_tpu_torch.models.train import param_shardings
+    from anchored_fusion_tpu_torch.models.filter_cnn import FilterModel
+    spec = param_shardings(FilterModel(tcfg), 2, tp_min_width=32)
+    assert spec and all(k.endswith("weight") for k in spec)
+    assert param_shardings(FilterModel(tcfg), 1, tp_min_width=32) == {}

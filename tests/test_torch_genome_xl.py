@@ -239,9 +239,17 @@ def test_xl_rejects_queries_wider_than_halo(xl_pair):
     _, t = xl_pair[2]
     with pytest.raises(ValueError, match="halo"):
         t.align(np.zeros((2, 2 * HALO), np.int8))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        txl.GenomeAlignerXL(port_ref(reference_from_dict({"c": "ACGT" * 99})),
-                            device="cpu", mesh=object())
+    # an XL mesh wider than the world: both packages refuse it
+    import jax
+    from anchored_fusion_tpu.config import MeshConfig as JMesh
+    from anchored_fusion_tpu.parallel.mesh import mesh_from_config as j_mesh
+    from anchored_fusion_tpu_torch.config import MeshConfig as TMesh
+    from anchored_fusion_tpu_torch.parallel.mesh import (
+        mesh_from_config as t_mesh)
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        j_mesh(JMesh(dp_size=2, shard_size=2), devices=jax.devices("cpu")[:1])
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        t_mesh(TMesh(dp_size=2, shard_size=2))
 
 
 def _both_xl(ref, cfg_kw):

@@ -49,7 +49,9 @@ def test_port_imports_no_jax():
                  "io.native", "utils.msgpack_lite", "utils.log",
                  "align.genome_xl", "parallel.sharded_genome",
                  "bench.hg_scale", "bench.hg_e2e", "cli.sc", "io.sam",
-                 "io.bam", "models.positive"):
+                 "io.bam", "models.positive", "models.bilstm",
+                 "models.svm", "parallel.mesh", "parallel.collectives",
+                 "parallel.distributed", "parallel.launch"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

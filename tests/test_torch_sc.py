@@ -321,8 +321,19 @@ def test_sc_cli_refuses_what_is_not_ported(sc_inputs, tmp_path):
     argv, _, _, _ = sc_inputs
     base = argv + ["--out_folder", str(tmp_path / "out"),
                    "--not_filter_false_positive"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.main(base + ["--num_procs", "2"], device="cpu")
+    # the cluster flags reach the runtime, which here sees no coordinator
+    from anchored_fusion_tpu_torch.parallel import distributed
+    calls = []
+    init = distributed.initialize
+    distributed.initialize = lambda *a, **kw: calls.append((a, kw)) or init(
+        *a, **kw)
+    try:
+        assert sc.main(argv + ["--out_folder", str(tmp_path / "cluster"),
+                               "--not_filter_false_positive",
+                               "--num_procs", "2"], device="cpu") == 0
+    finally:
+        distributed.initialize = init
+    assert calls == [((None, 2, None), {"device": "cpu"})]
     empty = tmp_path / "empty"
     empty.mkdir()
     cut = argv[:argv.index("--fastq_dir") + 1] + [str(empty)] + \

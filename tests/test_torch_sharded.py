@@ -133,7 +133,14 @@ def test_reduce_keeps_first_best_shard():
 
 
 def test_sharded_mesh_raises(world):
+    """A mesh whose mp size is not the shard count, and a mesh wider than
+    the world (as the JAX package's mesh_from_config), are refused."""
+    import types
+    from anchored_fusion_tpu_torch.config import MeshConfig
+    from anchored_fusion_tpu_torch.parallel.mesh import mesh_from_config
     ref, _ = world
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tsh.ShardedGenomeAligner(ref, n_shards=2, mesh=object(),
-                                 device="cpu")
+    with pytest.raises(ValueError, match="mp size 4"):
+        tsh.ShardedGenomeAligner(ref, n_shards=2, device="cpu",
+                                 mesh=types.SimpleNamespace(size=lambda ax: 4))
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        mesh_from_config(MeshConfig(shard_size=2))

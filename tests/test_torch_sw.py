@@ -160,42 +160,55 @@ def _last_valid(valid):
     return np.where(valid.any(1), n - 1 - np.argmax(valid[:, ::-1], 1), -1)
 
 
-def _model_pass(rd, nrows, wn, ncols, reverse, rend, wend, rpl, match,
-                mismatch, go, ge):
-    """One pass of the kernel's warp schedule, for every pair at once: lane
-    l holds rows [l*rpl, (l+1)*rpl) and computes column t - l at step t from
-    the H and F its left neighbour lane produced at step t - 1; every lane
-    computes every step, with PAD columns outside the pass; F runs down the
-    strip as max(F - ge, HnoF - go); a strict per-lane best, then the lanes'
-    reduction."""
+def _model_strip(rd, wn, ncols, reverse, rend, wend, rpl, base, srows,
+                 first, above_h, above_f, match, mismatch, go, ge):
+    """One strip of 32*rpl rows starting at row ``base`` (``srows`` of them
+    valid per pair): lane l holds rows base + [l*rpl, (l+1)*rpl) and
+    computes column t - l at step t from the H and F its left neighbour
+    lane produced at step t - 1; lane 0 takes the strip above's last row
+    (``above_h``/``above_f`` by column; the top edge H = 0, F = NEG on the
+    first strip).  Every lane computes every step, with PAD columns outside
+    the pass; F runs down the lane as max(F - ge, HnoF - go); a strict
+    per-lane best, then the lanes' reduction.  Returns the strip's best
+    (score, row, col) and its last row's H and F by column."""
     B, R = rd.shape
+    W = above_h.shape[1]
     bi = np.arange(B)[:, None]
     rows = LANES[:, None] * rpl + np.arange(rpl)[None, :]          # (32, rpl)
-    src = rend[:, None, None] - rows[None] if reverse else rows[None]
-    c = np.where(rows[None] < nrows[:, None, None],
+    grow = base + rows
+    src = rend[:, None, None] - grow[None] if reverse else grow[None]
+    c = np.where(rows[None] < srows[:, None, None],
                  rd[bi[:, :, None], np.clip(src, 0, R - 1)], PAD)
     rcmp = np.where(c < 4, c, 99)
     rbase = np.where(c != PAD, -mismatch, NEG)
     H = np.zeros((B, 32, rpl), np.int64)
     E = np.full((B, 32, rpl), max(-go, NEG - ge), np.int64)
-    nlanes = (nrows + rpl - 1) // rpl
-    steps = np.where((nrows > 0) & (ncols > 0), ncols + nlanes - 1, 0)
+    nlanes = (srows + rpl - 1) // rpl
+    steps = np.where((srows > 0) & (ncols > 0), ncols + nlanes - 1, 0)
     last_h = np.zeros((B, 32), np.int64)
     last_f = np.full((B, 32), NEG, np.int64)
     diag0 = np.zeros((B, 32), np.int64)
     best = np.zeros((B, 32), np.int64)
     bcol = np.zeros((B, 32), np.int64)
     brow = np.zeros((B, 32), np.int64)
+    below_h = np.zeros((B, W), np.int64)
+    below_f = np.full((B, W), NEG, np.int64)
     for t in range(int(steps.max(initial=0))):
         up_h = np.concatenate([last_h[:, :1], last_h[:, :-1]], 1)  # shfl_up
         up_f = np.concatenate([last_f[:, :1], last_f[:, :-1]], 1)
         j = np.broadcast_to(t - LANES, (B, 32))
+        # lane 0: the row above the strip at column t
+        top = (t < ncols) & (not first)
+        up_h[:, 0] = np.where(top, above_h[:, min(t, W - 1)], 0)
+        up_f[:, 0] = np.where(top, above_f[:, min(t, W - 1)], NEG)
         # every lane computes every step: a column outside the pass is PAD
         inside = (j >= 0) & (j < ncols[:, None]) & (t < steps[:, None])
         col = np.clip(wend[:, None] - j if reverse else j, 0, wn.shape[1] - 1)
         w = np.where(inside, wn[bi, col], PAD)
         colpen = np.where(w == PAD, NEG, 0)
-        F = np.where(LANES[None] > 0, np.maximum(up_f - ge, up_h - go), NEG)
+        F = np.maximum(up_f - ge, up_h - go)
+        if first:
+            F[:, 0] = NEG
         diag = diag0
         for k in range(rpl):
             s = np.where(rcmp[:, :, k] == w, match, rbase[:, :, k])
@@ -208,7 +221,12 @@ def _model_pass(rd, nrows, wn, ncols, reverse, rend, wend, rpl, match,
                 F = np.maximum(F - ge, hn - go)
         last_h = H[:, :, -1].copy()
         last_f = F
-        diag0 = np.where(LANES[None] > 0, up_h, 0)
+        j31 = t - 31
+        if 0 <= j31 < W:
+            keep = (j31 < ncols) & (t < steps)
+            below_h[:, j31] = np.where(keep, last_h[:, 31], below_h[:, j31])
+            below_f[:, j31] = np.where(keep, last_f[:, 31], below_f[:, j31])
+        diag0 = up_h
         cm = H.max(2)
         better = (cm > best) & (t < steps[:, None])
         best = np.where(better, cm, best)
@@ -223,20 +241,48 @@ def _model_pass(rd, nrows, wn, ncols, reverse, rend, wend, rpl, match,
         best = np.where(take, o[0], best)
         bcol = np.where(take, o[1], bcol)
         brow = np.where(take, o[2], brow)
-    return best[:, 0], brow[:, 0], bcol[:, 0]
+    return best[:, 0], base + brow[:, 0], bcol[:, 0], below_h, below_f
+
+
+def _model_pass(rd, nrows, wn, ncols, reverse, rend, wend, rpl, match,
+                mismatch, go, ge):
+    """One pass of the kernel's warp schedule, for every pair at once: the
+    rows in strips of 32*rpl, top to bottom (:func:`_model_strip`), each
+    strip's best joining the pair's by (higher score, earlier column, lower
+    row)."""
+    B = rd.shape[0]
+    strip = 32 * rpl
+    nstrips = np.where(ncols > 0, (nrows + strip - 1) // strip, 0)
+    best = np.zeros(B, np.int64)
+    brow = np.zeros(B, np.int64)
+    bcol = np.zeros(B, np.int64)
+    above_h = np.zeros((B, wn.shape[1]), np.int64)
+    above_f = np.full((B, wn.shape[1]), NEG, np.int64)
+    for st in range(int(nstrips.max(initial=0))):
+        srows = np.clip(nrows - st * strip, 0, strip)
+        sb, sr, sc, above_h, above_f = _model_strip(
+            rd, wn, ncols, reverse, rend, wend, rpl, st * strip, srows,
+            st == 0, above_h, above_f, match, mismatch, go, ge)
+        take = (st < nstrips) & ((sb > best) | ((sb == best) & (
+            (sc < bcol) | ((sc == bcol) & (sr < brow)))))
+        best = np.where(take, sb, best)
+        brow = np.where(take, sr, brow)
+        bcol = np.where(take, sc, bcol)
+    return best, brow, bcol
 
 
 def kernel_model(reads, wins, read_valid=None, window_valid=None, match=1,
-                 mismatch=4, gap_open=6, gap_extend=1):
+                 mismatch=4, gap_open=6, gap_extend=1, max_rpl=32):
     """What csrc/sw.cu computes: fused (5, B) without masks, forward-only
-    (3, B) with them."""
+    (3, B) with them.  ``max_rpl`` is the kernel's cap on rows a lane
+    holds (32); a lower cap runs short rows in several strips."""
     masked = read_valid is not None
     rv = read_valid if masked else reads != PAD
     wv = window_valid if masked else wins != PAD
     rd, wn = _staged(reads, rv), _staged(wins, wv)
     R = reads.shape[1]
     rpl = 1
-    while rpl * 32 < R:
+    while rpl * 32 < R and rpl < max_rpl:
         rpl *= 2
     go, ge = gap_open + gap_extend, gap_extend
     kw = dict(rpl=rpl, match=match, mismatch=mismatch, go=go, ge=ge)
@@ -356,6 +402,106 @@ def test_kernel_model_other_scores_match_plain():
     np.testing.assert_array_equal(got, want)
 
 
+STRIP_EDGES = ["R=1", "R=33", "W<32", "all-PAD", "short-read",
+               "single-match", "repeat-read"]
+
+
+@pytest.mark.parametrize("case", CASES + STRIP_EDGES, ids=str)
+def test_kernel_model_strips_match_plain(case):
+    """Rows walked in strips (here of 32 or 64 rows: a lane holds one or
+    two), each strip's lane 0 starting from the strip above's last row, as
+    csrc/sw.cu walks pairs taller than 1,024 rows: the same records."""
+    reads, wins = all_inputs(case)
+    got = kernel_model(reads, wins, max_rpl=1)
+    plain = tsw.sw_align_fused_plain(torch.from_numpy(reads),
+                                     torch.from_numpy(wins)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    rv, wv = random_masks(len(reads) + 1, reads, wins)
+    got = kernel_model(reads, wins, rv, wv, max_rpl=2)
+    want = tsw.sw_end(*map(torch.from_numpy, (reads, wins, rv, wv)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+def long_rows(seed, B, R, kind):
+    """Pairs of R-wide rows past one strip of 1,024: random reads implanted
+    with indels (``random``), or runs of one base against windows of it,
+    where the best ties over many rows and columns (``ties``)."""
+    if kind == "random":
+        return sw_inputs(seed, B, R, R - 7)
+    rng = np.random.default_rng(seed)
+    reads = np.zeros((B, R), np.int8)
+    wins = np.zeros((B, R + 32), np.int8)
+    for b in range(B):
+        reads[b, int(rng.integers(900, R)):] = PAD
+        wins[b, int(rng.integers(0, R)):] = int(rng.integers(0, 4))
+    return reads, wins
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_kernel_model_long_rows_match_jax(kind):
+    """R = 1152, two strips at the kernel's 32 rows a lane: the model of
+    csrc/sw.cu equals the plain SW and the JAX package's refine branch."""
+    reads, wins = long_rows(11, 2, 1152, kind)
+    got = kernel_model(reads, wins)
+    plain = tsw.sw_align_fused_plain(torch.from_numpy(reads),
+                                     torch.from_numpy(wins)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    want = _sw_align_fast(reads, wins, reads != PAD, wins != PAD,
+                          AlignConfig())
+    for i, k in enumerate(FIELDS):
+        np.testing.assert_array_equal(got[i], np.asarray(want[k]), k)
+
+
+def test_refine_result_long_rows_matches_jax_cpu_branch():
+    """Refinement of 1,152-wide rows (past one strip) on the CPU: the
+    port's refine_result against the JAX package's (its CPU branch,
+    refine.py:68-88), from the same ungapped records."""
+    from anchored_fusion_tpu.align.aligner import AlignmentResult as JRes
+    from anchored_fusion_tpu.align.refine import refine_result as j_refine
+    from anchored_fusion_tpu_torch.align.aligner import align_to_reference
+    from anchored_fusion_tpu_torch.align.refine import refine_result
+    from anchored_fusion_tpu_torch.config import AlignConfig as TCfg
+    rng = np.random.default_rng(8)
+    ref = rng.integers(0, 4, 6000).astype(np.int8)
+    R = 1152
+    reads = np.full((6, R), PAD, np.int8)
+    for b in range(6):
+        o = int(rng.integers(0, 4700))
+        seg = ref[o:o + 1100].copy()
+        if b % 2:
+            seg = np.concatenate([seg[:500], seg[503:]])       # deletion
+        else:
+            seg = np.concatenate([seg[:600], [1, 2], seg[600:1090]])
+        reads[b, :len(seg)] = seg
+    cfg = TCfg(gapped_refine=False)
+    res = align_to_reference(reads, ref, cfg, device="cpu")
+    assert res.mapped.sum() >= 4
+    jres = JRes(**{k: np.array(v) for k, v in vars(res).items()})
+    want = j_refine(jres, reads, ref, AlignConfig(), cfg.min_align_score,
+                    0.0, cfg.min_seg_len)
+    got = refine_result(res, reads, ref, TCfg(), cfg.min_align_score, 0.0,
+                        cfg.min_seg_len, device="cpu")
+    assert (got.score > res.score).sum() >= 4     # the gaps were bridged
+    for k in vars(want):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k), k)
+
+
+def test_cuda_wrapper_bounds_follow_the_key():
+    """Any read width up to MAX_W passes the wrapper's checks (the CPU
+    tensors then stop it); the key bound match * min(R, W) < 2^26 and
+    MAX_W do not."""
+    r = torch.full((2, 1152), PAD, dtype=torch.int8)
+    w = torch.full((2, 1216), PAD, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        sw_cuda.sw_align_fused_cuda(r, w)
+    with pytest.raises(ValueError, match="2\\^26"):
+        sw_cuda.sw_align_fused_cuda(r, w, match=1 << 16)
+    big = torch.full((1, sw_cuda.MAX_W + 1), PAD, dtype=torch.int8)
+    with pytest.raises(ValueError, match="read width"):
+        sw_cuda.sw_align_fused_cuda(big, big)
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     r = torch.full((2, 8), PAD, dtype=torch.int8)
     m = torch.ones((2, 8), dtype=torch.bool)
@@ -373,7 +519,7 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     (dict(read_valid=torch.ones((8, 2), dtype=torch.bool).t()), ValueError),
     (dict(gap_open=-1), ValueError),
     (dict(gap_extend=-1), ValueError),
-    (dict(match=1 << 16), ValueError),
+    (dict(match=1 << 23), ValueError),    # match * min(R, W) >= 2^26
 ])
 def test_sw_end_cuda_rejects_bad_masks(bad, err):
     args = dict(reads=torch.zeros((2, 8), dtype=torch.int8),
@@ -406,7 +552,8 @@ def _cuda_or_skip():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,R,lr", CASES + [
     (1000, 128, 101), (64, 101, 101), (22, 128, 101), (30, 128, 101),
-    (4096, 128, 101), (300, 256, 250), (64, 1024, 1000)])
+    (4096, 128, 101), (300, 256, 250), (64, 1024, 1000), (64, 1152, 1100),
+    (32, 2048, 2000), (16, 4096, 4090)])
 def test_cuda_kernel_matches_plain(B, R, lr):
     _cuda_or_skip()
     reads, wins = sw_inputs(B + 7, B, R, lr)
@@ -426,6 +573,24 @@ def test_cuda_kernel_matches_plain_edges(case):
     got = sw_cuda.sw_align_fused_cuda(r, w)
     torch.cuda.synchronize()
     assert torch.equal(got, tsw.sw_align_fused_plain(r, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("R", [1152, 2048, 4096])
+def test_cuda_kernel_long_rows_match_plain(R, kind):
+    _cuda_or_skip()
+    reads, wins = long_rows(R, 64, R, kind)
+    r, w = torch.from_numpy(reads).cuda(), torch.from_numpy(wins).cuda()
+    got = sw_cuda.sw_align_fused_cuda(r, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tsw.sw_align_fused_plain(r, w))
+    rv, wv = random_masks(R, reads, wins)
+    m = [torch.from_numpy(x).cuda() for x in (rv, wv)]
+    got = sw_cuda.sw_end_cuda(r, w, *m)
+    torch.cuda.synchronize()
+    for g, x in zip(got, tsw.sw_end(r, w, *m)):
+        assert torch.equal(g, x)
 
 
 @pytest.mark.cuda
