@@ -5,10 +5,11 @@ a comparison on one card with another version of its source.
 
 builds OLD/sw.cu (any source that exports ``sw_align_launch``, with or
 without the strips' ``scratch`` argument) beside the package's own kernel
-and prints one JSON line per
-shape: both kernels' times (median of 20 warm launches, CUDA events), taken
-in turns baseline, new, new, baseline, each output held equal to the plain
-version, with the bound of the shape.  chip_smoke.py uses the inputs,
+and prints one JSON line per shape: both kernels' times, each launched by
+the same bare ctypes call (median of 50 warm launches, CUDA events), taken
+in turns baseline, new, new, baseline; the time of the package's wrapper
+(``sw_align_fused_cuda``, its checks and allocations included); every
+output held equal to the plain version; and the bound of the shape.  chip_smoke.py uses the inputs,
 bounds and timer of this module for its kernel phase.
 """
 
@@ -190,9 +191,12 @@ def load_baseline(source: str):
     return run
 
 
-# (B, R, W, read length): the main path's two batches, then larger ones
+# (B, R, W, read length): the main path's two batches, then the rest of
+# chip_smoke.py's KERNEL_SHAPES (every one within a single strip of rows)
 COMPARE_SHAPES = [(30, 128, 160, 101), (22, 128, 160, 101),
-                  (1000, 128, 160, 101), (4096, 128, 160, 101),
+                  (64, 128, 160, 101), (256, 128, 160, 101),
+                  (1024, 128, 160, 101), (1000, 128, 160, 101),
+                  (4096, 128, 160, 101), (1000, 101, 133, 101),
                   (1000, 256, 288, 250), (64, 1024, 1056, 1000)]
 
 
@@ -201,21 +205,23 @@ def compare(baseline: str, seed: int = 0) -> list[dict]:
     from anchored_fusion_tpu_torch.ops import sw_cuda
     from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain
     base = load_baseline(baseline)
+    cur = load_baseline(sw_cuda.SOURCE)
     rng = np.random.default_rng(seed)
     recs = []
     for B, R, W, lr in COMPARE_SHAPES:
         reads, wins = (torch.from_numpy(x).cuda()
                        for x in sw_inputs(rng, B, R, W, lr))
         want = sw_align_fused_plain(reads, wins)
-        new = lambda: sw_cuda.sw_align_fused_cuda(reads, wins)  # noqa: E731
+        new = lambda: cur(reads, wins)  # noqa: E731
         old = lambda: base(reads, wins)  # noqa: E731
-        equal = [bool(torch.equal(f(), want)) for f in (old, new)]
-        t = [time_ms(f, 20) for f in (old, new, new, old)]
+        wrap = lambda: sw_cuda.sw_align_fused_cuda(reads, wins)  # noqa: E731
+        equal = [bool(torch.equal(f(), want)) for f in (old, new, wrap)]
+        t = [time_ms(f, 50) for f in (old, new, new, old)]
         cells = dp_cells(reads != PAD, wins != PAD, want[1], want[2])
         nbytes = reads.numel() + wins.numel() + want.numel() * 4
         rec = {"B": B, "R": R, "W": W, "baseline_equal": equal[0],
-               "equal": equal[1], "baseline_ms": [t[0], t[3]],
-               "ms": [t[1], t[2]],
+               "equal": equal[1] and equal[2], "baseline_ms": [t[0], t[3]],
+               "ms": [t[1], t[2]], "wrapper_ms": time_ms(wrap, 50),
                "bound_ms": bound_ms(cells, nbytes, KERNEL_OPS_PER_CELL),
                "bound_ms_12op": bound_ms(cells, nbytes, PLAIN_OPS_PER_CELL)}
         print(json.dumps(rec), flush=True)

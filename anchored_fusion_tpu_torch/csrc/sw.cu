@@ -87,7 +87,9 @@
 //   that boundary where the first strip sees the top edge (H = 0,
 //   F = NEG), its diagonal included.  A strip's best joins the pair's by
 //   before(), so the order stays higher score, earlier column, lower row.
-//   Pairs of up to 1,024 rows run one strip and never touch the scratch;
+//   Only a launch with R > 1,024 compiles the strip code (STRIPS); pairs
+//   of up to 1,024 rows run the one-strip loop, which has no boundary
+//   branch or store, and never touch the scratch;
 // - a block holds fewer than kWarps pairs when kWarps * (R + W) bytes of
 //   staged codes would pass the 227 KB of shared memory a block may use.
 // The TPU kernel's transposed lane layout, log-step prefix max and scratch
@@ -134,8 +136,9 @@ __device__ __forceinline__ Best warp_best(Best b) {
 // One DP pass over nrows x ncols cells, in strips of 32 * RPL rows.
 // Forward: rd[i], wn[j].  Reverse: rd[rend - i], wn[wend - j].  rd and wn
 // hold staged codes (kPad invalid).  bnd: two boundary rows of ncols (H, F)
-// pairs, read only when nrows passes one strip.
-template <int RPL, bool REVERSE>
+// pairs, read only when nrows passes one strip.  Without STRIPS, nrows is
+// at most one strip and every strip term folds away at compile time.
+template <int RPL, bool REVERSE, bool STRIPS>
 __device__ Best sw_pass(const int8_t* rd, int nrows, const int8_t* wn,
                         int ncols, int rend, int wend, int match, int mismatch,
                         int go, int ge, int2* bnd) {
@@ -147,13 +150,15 @@ __device__ Best sw_pass(const int8_t* rd, int nrows, const int8_t* wn,
     return (j >= 0 && j < ncols) ? (int)wn[REVERSE ? wend - j : j] : kPad;
   };
   Best best{0, 0, 0};
-  const int nstrips = ncols > 0 ? (nrows + kStrip - 1) / kStrip : 0;
+  if (nrows <= 0 || ncols <= 0) return best;
+  // one strip, and no loop, unless the launch compiled the strips
+  const int nstrips = STRIPS ? (nrows + kStrip - 1) / kStrip : 1;
   for (int st = 0; st < nstrips; ++st) {
-    const int base = st * kStrip;
-    const int srows = min(kStrip, nrows - base);
+    const int base = STRIPS ? st * kStrip : 0;
+    const int srows = STRIPS ? min(kStrip, nrows - base) : nrows;
     const int2* above = bnd + (st & 1) * ncols;   // the strip above wrote it
     int2* below = bnd + ((st + 1) & 1) * ncols;   // the strip below reads it
-    const bool write_below = lane == 31 && st + 1 < nstrips;
+    const bool write_below = STRIPS && lane == 31 && st + 1 < nstrips;
     int rcmp[RPL], rbase[RPL], H[RPL], E[RPL];
 #pragma unroll
     for (int k = 0; k < RPL; ++k) {
@@ -185,14 +190,15 @@ __device__ Best sw_pass(const int8_t* rd, int nrows, const int8_t* wn,
         // strip above
         upH = 0;
         upF = kNeg;
-        if (st > 0 && j < ncols) {
+        if (STRIPS && st > 0 && j < ncols) {
           const int2 b = above[j];
           upH = b.x;
           upF = b.y;
         }
       }
       const int colpen = w == kPad ? kNeg : 0;
-      int F = (lane || st) ? __viaddmax_s32(upF, -ge, upH - go) : kNeg;
+      int F = (lane || (STRIPS && st)) ? __viaddmax_s32(upF, -ge, upH - go)
+                                       : kNeg;
       int diag = diag0;
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
@@ -223,7 +229,7 @@ __device__ Best sw_pass(const int8_t* rd, int nrows, const int8_t* wn,
     const Best b = warp_best(
         Best{bhi >> 5, bcol, base + lane * RPL + 31 - (bkey & 31)});
     if (before(b, best)) best = b;
-    __syncwarp();  // the boundary row is whole before the next strip reads it
+    if (STRIPS) __syncwarp();  // the boundary row is whole before it is read
   }
   return best;
 }
@@ -245,7 +251,7 @@ __device__ __forceinline__ int stage(const int8_t* __restrict__ src,
   return __reduce_max_sync(kFull, last);
 }
 
-template <int RPL, bool MASKED>
+template <int RPL, bool MASKED, bool STRIPS>
 __global__ void __launch_bounds__(32 * kWarps)
     sw_kernel(const int8_t* __restrict__ reads, const int8_t* __restrict__ wins,
               const uint8_t* __restrict__ rmask,
@@ -266,8 +272,9 @@ __global__ void __launch_bounds__(32 * kWarps)
       stage<MASKED>(wins + wo, MASKED ? wmask + wo : nullptr, W, wn);
   __syncwarp();
 
-  const Best f = sw_pass<RPL, false>(rd, last_r + 1, wn, last_w + 1, 0, 0,
-                                     match, mismatch, go, ge, bnd);
+  const Best f = sw_pass<RPL, false, STRIPS>(rd, last_r + 1, wn, last_w + 1,
+                                             0, 0, match, mismatch, go, ge,
+                                             bnd);
   if (MASKED) {
     if ((threadIdx.x & 31) == 0) {
       out[0 * (size_t)B + b] = f.score;
@@ -276,8 +283,9 @@ __global__ void __launch_bounds__(32 * kWarps)
     }
     return;
   }
-  const Best r = sw_pass<RPL, true>(rd, f.row + 1, wn, f.col + 1, f.row,
-                                    f.col, match, mismatch, go, ge, bnd);
+  const Best r = sw_pass<RPL, true, STRIPS>(rd, f.row + 1, wn, f.col + 1,
+                                            f.row, f.col, match, mismatch, go,
+                                            ge, bnd);
   if ((threadIdx.x & 31) == 0) {
     out[0 * (size_t)B + b] = f.score;
     out[1 * (size_t)B + b] = f.row;
@@ -287,7 +295,7 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-template <int RPL, bool MASKED>
+template <int RPL, bool MASKED, bool STRIPS>
 int run(const void* reads, const void* wins, const void* rmask,
         const void* wmask, int B, int R, int W, int match, int mismatch,
         int go, int ge, void* scratch, void* out, cudaStream_t stream) {
@@ -298,7 +306,7 @@ int run(const void* reads, const void* wins, const void* rmask,
                               : (size_t)kWarps);
   if (warps < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = warps * per_pair;
-  auto kernel = sw_kernel<RPL, MASKED>;
+  auto kernel = sw_kernel<RPL, MASKED, STRIPS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -327,12 +335,17 @@ int dispatch(const void* reads, const void* wins, const void* rmask,
   }
   const int go = gap_open + gap_extend, ge = gap_extend;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (R > 32 * kMaxRpl) {
+    return run<kMaxRpl, MASKED, true>(reads, wins, rmask, wmask, B, R, W,
+                                      match, mismatch, go, ge, scratch, out,
+                                      s);
+  }
   int rpl = 1;
-  while (rpl * 32 < R && rpl < kMaxRpl) rpl <<= 1;
+  while (rpl * 32 < R) rpl <<= 1;
 #define SW_RUN(N)                                                           \
   case N:                                                                   \
-    return run<N, MASKED>(reads, wins, rmask, wmask, B, R, W, match,        \
-                          mismatch, go, ge, scratch, out, s);
+    return run<N, MASKED, false>(reads, wins, rmask, wmask, B, R, W, match, \
+                                 mismatch, go, ge, scratch, out, s);
   switch (rpl) {
     SW_RUN(1)
     SW_RUN(2)

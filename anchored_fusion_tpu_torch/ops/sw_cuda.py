@@ -83,7 +83,7 @@ def build() -> str:
 
 def ptxas_usage() -> list[dict]:
     """Registers and spill bytes of each kernel instantiation, from the
-    ptxas report of the build: [{"rpl", "masked", "registers",
+    ptxas report of the build: [{"rpl", "masked", "strips", "registers",
     "spill_stores", "spill_loads"}]."""
     build()
     with open(_paths()[1]) as fh:
@@ -92,9 +92,10 @@ def ptxas_usage() -> list[dict]:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"sw_kernelILi(\d+)ELb([01])E", m.group(1))
-            cur = ({"rpl": int(t.group(1)), "masked": t.group(2) == "1"}
-                   if t else None)
+            t = re.search(r"sw_kernelILi(\d+)ELb([01])ELb([01])E",
+                          m.group(1))
+            cur = ({"rpl": int(t.group(1)), "masked": t.group(2) == "1",
+                    "strips": t.group(3) == "1"} if t else None)
             continue
         if cur is None:
             continue
@@ -108,7 +109,7 @@ def ptxas_usage() -> list[dict]:
             cur["registers"] = int(m.group(1))
             out.append(cur)
             cur = None
-    return sorted(out, key=lambda d: (d["masked"], d["rpl"]))
+    return sorted(out, key=lambda d: (d["masked"], d["strips"], d["rpl"]))
 
 
 def _load():

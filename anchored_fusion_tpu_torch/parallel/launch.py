@@ -29,7 +29,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Sequence
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -51,8 +51,7 @@ def _tail(path: str, n: int = 4000) -> str:
 
 def run_ranks(target: str, world: int, args: Sequence = (),
               timeout: float = 240.0, device: str = "cpu",
-              threads: int = 1, env: Optional[dict] = None,
-              init: bool = True) -> list:
+              threads: int = 1, init: bool = True) -> list:
     """``fn(*args)`` on ranks 0..world-1; returns their return values in
     rank order.  ``device`` picks the backend (parallel.distributed);
     ``threads`` is each rank's ``torch.set_num_threads``."""
@@ -64,7 +63,7 @@ def run_ranks(target: str, world: int, args: Sequence = (),
                          "threads": threads, "init": init,
                          "coordinator": f"127.0.0.1:{free_port()}",
                          "out": d, "timeout": timeout}, fh)
-        penv = dict(os.environ if env is None else env)
+        penv = dict(os.environ)
         penv["PYTHONPATH"] = os.pathsep.join(
             p for p in (_REPO, penv.get("PYTHONPATH", "")) if p)
         for k in ("AFT_COORDINATOR", "AFT_NUM_PROCS", "AFT_PROC_ID"):

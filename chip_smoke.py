@@ -73,7 +73,8 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              (2, 1) and (1, 2) meshes (probe scores within 2e-2 and 5e-2 of
              one rank); then the bulk CLI (config 2) and the single-cell CLI
              (filter off) each as 2 processes given --coordinator,
-             --num_procs and --proc_id, against the one-process runs
+             --num_procs and --proc_id (parallel/launch.py's ranks, with
+             the same deadline), against the one-process runs
   xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
@@ -2174,30 +2175,32 @@ def mesh_worker(art: dict) -> dict:
     return out
 
 
-def run_cluster(args: list, cwd: str, timeout: float) -> list:
-    """``python -m <args>`` as MESH_RANKS processes of one cluster on this
-    card, given --coordinator/--num_procs/--proc_id; with a deadline, every
-    process killed if one fails.  Returns (rc, stdout, wall s) a process."""
-    from anchored_fusion_tpu_torch.parallel.launch import free_port
-    coord = f"127.0.0.1:{free_port()}"
-    env = dict(os.environ, PYTHONPATH=HERE)
+def cli_rank(module: str, argv: list, cwd: str) -> tuple:
+    """One process of a cluster run of ``cli.<module>`` on this card
+    (parallel/launch.py runs it on every rank with ``init=False``): the CLI
+    as a user runs it in ``cwd``, given --coordinator/--num_procs/--proc_id
+    from the launcher's AFT_* rendezvous.  Returns (exit code, stdout,
+    wall s)."""
+    import importlib
+    mod = importlib.import_module(f"{PKG}.cli.{module}")
+    flags = ["--coordinator", os.environ["AFT_COORDINATOR"],
+             "--num_procs", os.environ["AFT_NUM_PROCS"],
+             "--proc_id", os.environ["AFT_PROC_ID"]]
+    buf = io.StringIO()
     t0 = time.time()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", *args, "--coordinator", coord, "--num_procs",
-         str(MESH_RANKS), "--proc_id", str(i)], cwd=cwd, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(MESH_RANKS)]
-    outs = []
-    try:
-        for p in procs:
-            left = max(1.0, timeout - (time.time() - t0))
-            outs.append((p.communicate(timeout=left)[0], time.time() - t0))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return [(p.returncode, o, w) for p, (o, w) in zip(procs, outs)]
+    with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+        rc = mod.main(argv + flags)
+    return rc, buf.getvalue(), time.time() - t0
+
+
+def run_cluster(module: str, argv: list, cwd: str) -> list:
+    """``cli.<module>`` as MESH_RANKS processes of one cluster on this card,
+    every rank killed as soon as one fails or the deadline passes; (rc,
+    stdout, wall s) a process."""
+    from anchored_fusion_tpu_torch.parallel.launch import run_ranks
+    return run_ranks(os.path.join(HERE, "chip_smoke.py") + ":cli_rank",
+                     MESH_RANKS, (module, argv, cwd), device="cuda",
+                     timeout=MESH_DEADLINE_S, threads=4, init=False)
 
 
 def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
@@ -2257,8 +2260,7 @@ def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
     # the bulk CLI, config 2, as a cluster against the one-process run
     config2, one_out, run_dir = cli_inp["config2"]
     out = os.path.join(tmpdir, "cli", "cluster")
-    bulk = run_cluster([f"{PKG}.cli.bulk", *cli_argv(cli_inp, out, config2)],
-                       run_dir, MESH_DEADLINE_S)
+    bulk = run_cluster("bulk", cli_argv(cli_inp, out, config2), run_dir)
     with open(one_out + ".log") as fh:
         one = {"stdout": fh.read(), **cli_outputs(cli_inp, one_out)}
     two = {"stdout": bulk[0][1], **cli_outputs(cli_inp, out)}
@@ -2273,12 +2275,11 @@ def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
     gene = cli_inp["anchor"]
     cells = os.path.join(tmpdir, "sc_cli", "cells")
     out_sc = os.path.join(tmpdir, "sc_cli", "cluster")
-    sc = run_cluster([f"{PKG}.cli.sc", "--file_anchored_cds", p["anchor"],
-                      "--gene_names", p["names"], "--fastq_dir", cells,
-                      "--file_ref_seq", p["genome"], "--file_ref_ann",
-                      p["gtf"], "--out_folder", out_sc,
-                      "--not_filter_false_positive"], run_dir,
-                     MESH_DEADLINE_S)
+    sc = run_cluster("sc", ["--file_anchored_cds", p["anchor"],
+                            "--gene_names", p["names"], "--fastq_dir", cells,
+                            "--file_ref_seq", p["genome"], "--file_ref_ann",
+                            p["gtf"], "--out_folder", out_sc,
+                            "--not_filter_false_positive"], run_dir)
     name = f"{gene}_fusion_gene_cell_predictions_abridged.txt"
     texts = []
     for folder in (os.path.join(tmpdir, "sc_cli", "filter_off"), out_sc):

@@ -65,6 +65,54 @@ def _train(lines, mesh):
     return np.asarray(score_junctions(f, probe)), f.best_auc
 
 
+def _two_steps(lines, mesh, plant=None):
+    """Two train_steps of the SMALL filter from one seeded initialisation,
+    each on a 32-row batch split over the mesh's dp ranks (the whole batch
+    without a mesh); the whole state_dict after them.  ``plant`` breaks the
+    data-parallel step on purpose, to show the check catches it:
+    "no_grad_sum" drops the gradient all-reduce, "local_batch" leaves
+    data_parallel out (each rank's own BatchNorm statistics and dropout
+    masks).  The optimiser is SGD at rate 0.1, so each step moves the
+    weights by a tenth of the gradient: Adam's first steps move every
+    weight by about its rate whatever its gradient, and a weight whose
+    gradient is only float noise (a convolution's bias before BatchNorm)
+    would land anywhere in either run."""
+    import contextlib
+    from unittest import mock
+    from anchored_fusion_tpu_torch.config import FilterModelConfig
+    from anchored_fusion_tpu_torch.models import data as fdata
+    from anchored_fusion_tpu_torch.models import train as T
+    from anchored_fusion_tpu_torch.models.filter_cnn import FilterModel
+    cfg = FilterModelConfig(**SMALL)
+    pos, neg, _ = lines
+    order = np.random.default_rng(5).permutation(64)
+    x = torch.from_numpy(fdata.one_hot_junctions(pos[:32] + neg[:32]))[order]
+    y = torch.from_numpy(np.repeat([1, 0], 32))[order]
+    torch.manual_seed(0)
+    model = FilterModel(cfg, x.shape[1])
+    if mesh is not None:
+        T.shard_parameters_(model, mesh, TP_MIN_WIDTH)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    patch = {"no_grad_sum": mock.patch.object(T, "_sum_grads",
+                                              lambda *a: None),
+             "local_batch": mock.patch.object(
+                 T, "data_parallel", lambda *a: contextlib.nullcontext()),
+             None: contextlib.nullcontext()}[plant]
+    with patch:
+        for lo in (0, 32):
+            xb, yb = x[lo:lo + 32], y[lo:lo + 32]
+            if mesh is None:
+                T.train_step(model, opt, xb, yb, gen, cfg)
+                continue
+            dp, r = mesh.size(0), mesh.get_local_rank(0)
+            per = 32 // dp
+            T.train_step(model, opt, xb[r * per:(r + 1) * per],
+                         yb[r * per:(r + 1) * per], gen, cfg,
+                         dp=(mesh.get_group(0), r * per, 32))
+    return T._snapshot(model)
+
+
 def _pipeline_rows(world, fixtures, out_dir):
     """call_gene under MeshConfig(dp_size=2) on each fixture."""
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
@@ -119,6 +167,8 @@ def _ranks2(inp):
     out["flat"] = (_records(ga.align(reads)), _records(ga.align_multi(reads)))
     out["pipeline"] = _pipeline_rows(*inp["pipeline"])
     out["train_dp"] = _train(inp["lines"], m21)
+    out["step_dp"] = {p: _two_steps(inp["lines"], m21, p)
+                      for p in (None, "no_grad_sum", "local_batch")}
     from anchored_fusion_tpu_torch.parallel import mesh as M
     arr = np.arange(7 * 3).reshape(7, 3)
     out["placement"] = (M.shard_batch(m21, arr), M.pad_to_multiple(arr, 4, -1),
@@ -159,6 +209,8 @@ def _ranks4(inp):
     out["sharded"] = (_records(sh.align(reads)),
                       _records(sh.align_multi(reads)))
     out["train_tp"] = _train(inp["lines"], m22)
+    out["step_tp"] = {p: _two_steps(inp["lines"], m22, p)
+                      for p in (None, "no_grad_sum", "local_batch")}
     return out
 
 
@@ -512,6 +564,27 @@ def test_trainer_mesh_matches_one_rank(inputs, ranks2, ranks4, kind):
     assert abs(auc1 - auc2) < 0.05
     for r in ranks[1:]:
         np.testing.assert_array_equal(r[f"train_{kind}"][0], s2)
+
+
+@pytest.mark.parametrize("kind", ["dp", "tp"])
+def test_trainer_step_equals_one_rank_step(ranks2, ranks4, inputs, kind):
+    """Two training steps on (2, 1) and on (2, 2) at tp_min_width 64 leave
+    every parameter, BatchNorm statistic and the step count within 1e-5 of
+    one rank's two steps on the whole batches; the same steps without the
+    gradient all-reduce, or with each rank's own batch statistics and
+    dropout masks, are 100 times further off."""
+    ranks = ranks2 if kind == "dp" else ranks4
+    want = _two_steps(inputs["lines"], None)
+    for r in ranks:
+        got = r[f"step_{kind}"]
+        assert sorted(got[None]) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[None][k].numpy(), v.numpy(),
+                                       rtol=0, atol=1e-5, err_msg=k)
+        for plant in ("no_grad_sum", "local_batch"):
+            off = max(float((got[plant][k].double() - v.double()).abs().max())
+                      for k, v in want.items())
+            assert off > 1e-3, (plant, off)
 
 
 def test_param_shardings_match_jax_rule():
