@@ -60,6 +60,9 @@ def get_lib():
     if so is None:
         return None
     lib = ctypes.CDLL(so)
+    lib.aft_encode_dna.restype = ctypes.c_long
+    lib.aft_encode_dna.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p]
     lib.aft_decode_fastq.restype = ctypes.c_long
     lib.aft_decode_fastq.argtypes = [
         ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_int,
@@ -103,3 +106,14 @@ def decode_fastq_native(data: bytes, max_len: Optional[int] = None
             nm = nm[:-2]
         names.append(nm)
     return names, seq[:got], lens[:got]
+
+
+def encode_dna_native(data: bytes) -> Optional[np.ndarray]:
+    """(len(data),) int8 codes of a raw DNA byte string (A/C/G/T in either
+    case; anything else N); None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(len(data), np.int8)
+    lib.aft_encode_dna(data, len(data), out.ctypes.data_as(ctypes.c_void_p))
+    return out

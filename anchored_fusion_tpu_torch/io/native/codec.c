@@ -2,10 +2,10 @@
  *
  * The reference delegates all byte-level work (FASTQ parsing, base encoding)
  * to bwa/samtools C code through pipes; this is the framework's in-process
- * equivalent: a small C library that turns FASTQ byte buffers into the
- * packed int8 code arrays the device kernels consume.  Compiled on first use
- * with the system toolchain (see loader in __init__.py); the pure-Python
- * parser remains for a machine without a C compiler.
+ * equivalent: a small C library that turns FASTQ and raw DNA byte buffers
+ * into the packed int8 code arrays the device kernels consume.  Compiled on
+ * first use with the system toolchain (see loader in __init__.py); the
+ * pure-Python parser remains for a machine without a C compiler.
  *
  * Code space must match ops/encode.py: A=0, C=1, G=2, T=3, N=4, PAD=5.
  */
@@ -24,6 +24,13 @@ static void init_lut(void) {
     LUT['G'] = 2; LUT['g'] = 2;
     LUT['T'] = 3; LUT['t'] = 3;
     lut_ready = 1;
+}
+
+/* Encode a raw DNA byte string into int8 codes. Returns n. */
+long aft_encode_dna(const char *buf, long n, signed char *out) {
+    init_lut();
+    for (long i = 0; i < n; i++) out[i] = LUT[(unsigned char)buf[i]];
+    return n;
 }
 
 /* Parse a FASTQ buffer.

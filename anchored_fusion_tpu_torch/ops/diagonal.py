@@ -59,3 +59,16 @@ def diag_match_counts_w(reads: torch.Tensor, seed_matrix: torch.Tensor,
     B = reads.shape[0]
     read1h = one_hot(reads[:, ::stride], seed_matrix.dtype).reshape(B, -1)
     return read1h @ seed_matrix
+
+
+def diag_match_counts(reads: torch.Tensor, ref: np.ndarray) -> torch.Tensor:
+    """One-shot form: build the patch matrix of ``ref`` ((L,) int8 codes)
+    on the reads' device and multiply.  (B, L+R-1) float32 exact counts."""
+    reads = torch.as_tensor(reads)
+    W = build_seed_matrix(np.asarray(ref), int(reads.shape[1]), reads.device)
+    return diag_match_counts_w(reads, W)
+
+
+def diag_index_to_ref_offset(idx, read_len_padded: int):
+    """The reference offset of read position 0 on diagonal ``idx``."""
+    return idx - (read_len_padded - 1)

@@ -50,10 +50,12 @@ def _tail(path: str, n: int = 4000) -> str:
 
 
 def run_ranks(target: str, world: int, args: Sequence = (),
-              timeout: float = 240.0, device: str = "cpu",
+              timeout: float = 240.0, device: str = "cuda",
               threads: int = 1, init: bool = True) -> list:
     """``fn(*args)`` on ranks 0..world-1; returns their return values in
-    rank order.  ``device`` picks the backend (parallel.distributed);
+    rank order.  ``device`` picks the backend (parallel.distributed); as
+    at every entry point it is ``cuda`` unless the caller asks for the CPU,
+    and each rank raises (so this call raises) without a card.
     ``threads`` is each rank's ``torch.set_num_threads``."""
     with tempfile.TemporaryDirectory(prefix="aft_ranks_") as d:
         spec = os.path.join(d, "spec.pkl")
@@ -125,8 +127,10 @@ def _resolve(target: str):
 def _main(spec_path: str, rank: int) -> int:
     import torch
     from anchored_fusion_tpu_torch.parallel import distributed
+    from anchored_fusion_tpu_torch.utils.device import resolve_device
     with open(spec_path, "rb") as fh:
         spec = pickle.load(fh)
+    resolve_device(spec["device"])
     torch.set_num_threads(spec["threads"])
     if spec["init"]:
         distributed.initialize(spec["coordinator"], spec["world"], rank,

@@ -198,7 +198,11 @@ class ShardedGenomeAligner:
     def __init__(self, reference: Reference, n_shards: int,
                  cfg: Optional[AlignConfig] = None, overlap: int = 512,
                  mesh=None, device_build: Optional[bool] = None,
-                 device="cuda"):
+                 device="cuda", prebuilt=None):
+        """``prebuilt``: the tuple ``_build_shard_arrays`` returns (keys,
+        pos, tables, seqs, offsets, kb), which is then only placed on
+        ``device``, so a harness can time the host build apart from the
+        placement."""
         if mesh is not None and mesh.size(1) != n_shards:
             raise ValueError(f"n_shards {n_shards} != the mesh's mp size "
                              f"{mesh.size(1)}")
@@ -215,15 +219,18 @@ class ShardedGenomeAligner:
         self.stride = self.cfg.resolved_query_stride()
         if device_build is None:
             # past ~200 Mbp the host sort dominates: build on the device
-            device_build = reference.total_length > 200_000_000
+            device_build = (prebuilt is None
+                            and reference.total_length > 200_000_000)
         codes = np.asarray(reference.seq)
-        if device_build:
+        if device_build and prebuilt is None:
             self.shards, offs, self.kb = _build_shard_arrays_on_device(
                 codes, n_shards, self.k, overlap, self.index_stride,
                 self.device, self.shard_ids)
         else:
-            keys, pos, tbl, seq, offs, self.kb = _build_shard_arrays(
-                codes, n_shards, self.k, overlap, stride=self.index_stride)
+            keys, pos, tbl, seq, offs, self.kb = (
+                prebuilt if prebuilt is not None else _build_shard_arrays(
+                    codes, n_shards, self.k, overlap,
+                    stride=self.index_stride))
             self.shards = [
                 (KmerIndex.from_arrays(keys[s], pos[s], tbl[s], self.k,
                                        self.kb, seq.shape[1], self.device),

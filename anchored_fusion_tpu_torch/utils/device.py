@@ -18,3 +18,10 @@ def resolve_device(device) -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the host")
     return dev
+
+
+def sync(device) -> None:
+    """Wait for the card's queued work (a harness's timer edge); nothing to
+    wait for on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

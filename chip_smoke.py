@@ -9,8 +9,9 @@ its plain PyTorch version on the card, checks that ``call_gene`` and
 fixtures, then drives the main path — ``FusionPipeline.call_gene`` on the
 flat genome engine — at a real size: a 100 Mbp genome, a ~7 kb anchor
 transcript and 1,000,000 read pairs of 101 bp; the single-cell path on the
-same genome (96 cells, 4,800,000 pairs) and through its CLI; and the
-hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
+same genome (96 cells, 4,800,000 pairs) and through its CLI; the bench
+harnesses at their own sizes; and the hg38-scale path on a 3.1 Gbp
+genome.  Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
   kernel     registers and spill bytes of every kernel instantiation
@@ -75,6 +76,22 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              (filter off) each as 2 processes given --coordinator,
              --num_procs and --proc_id (parallel/launch.py's ranks, with
              the same deadline), against the one-process runs
+  bench      the bench harnesses in this process through their main(argv)
+             on cuda, each with its JSON line, wall seconds, peak device
+             memory and SW launches: depth_sweep at its defaults (6 fusions
+             x 7 coverages; every fusion detected from 32x up) and
+             --fusions 1 --coverages 8,32 on cuda and on cpu (equal lines);
+             the surrogate CLI and real_depth (8 halvings) on a generated
+             wgsim-form sample of 11,258 pairs (the fusion detected at full
+             depth), downsample.halving_ladder on its FASTQ files (counts
+             equal to downsample_batch's); hg_scale at 1.0 Gbp, 16,384
+             reads, through XL (stride 8, k 14, H 4 and 8, stage profile),
+             the sharded engine built on the card (stride 4, H 8 and 16)
+             and flat (stride 4, H 8 and 16), recall_unique >= 0.99 at each
+             route's highest H; negative_scale at its defaults (1,000,000
+             reads); make_positive_assets byte-identical to
+             data/positive_samples.txt.  Every SW batch is captured and held
+             equal to the plain SW
   xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
@@ -85,12 +102,14 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
   (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path, in
-             the cli run, in xl_path and in sc_path, and their time, bound
-             and plain time on the main path's own inputs (sw_end, which
-             call_gene does not call, with random masks); sw_align_fused is
-             also held equal to the plain SW on every batch the in-process
-             cli run, xl_path and sc_path handed it; the launches in the
-             mesh phase's ranks and the long-row times are added
+             the cli run, in xl_path, in sc_path and in bench (every
+             refining call of depth_sweep, real_depth and hg_scale: ~2 a
+             call_gene, 1 an align batch), and their time, bound and plain
+             time on the main path's own inputs (sw_end, which no path
+             calls, with random masks); sw_align_fused is also held equal
+             to the plain SW on every batch the in-process cli run,
+             xl_path, sc_path and bench handed it; the launches in the mesh
+             phase's ranks and the long-row times are added
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -820,16 +839,18 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
 
 def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
                                 cli_captured, xl: dict, sc: dict,
-                                mesh: dict, long_rows: list) -> list[dict]:
+                                mesh: dict, bench: dict,
+                                long_rows: list) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
     with random validity masks.  The fused entry is also held equal to the
-    plain SW on every batch of the in-process cli run, and ``xl`` and
-    ``sc`` hold its check on every batch of xl_path and of sc_path
-    (check_batches).  The entries of the kernels line, with the launches of
-    main_path, of the cli phase, of xl_path, of sc_path and of the mesh
-    phase's ranks, and the kernel phase's long-row batches."""
+    plain SW on every batch of the in-process cli run, and ``xl``, ``sc``
+    and ``bench`` hold its check on every batch of xl_path, sc_path and the
+    bench phase (check_batches).  The entries of the kernels line, with the
+    launches of main_path, of the cli phase, of xl_path, of sc_path, of the
+    mesh phase's ranks and of the bench phase, and the kernel phase's
+    long-row batches."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -848,13 +869,13 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
     out = []
     for name, recs in cases.items():
         fused = name == "sw_align_fused"
+        checks = (xl, sc, bench) if fused else ()
         err = max([r["max_abs_err"] for r in recs + on_cli[name]]
-                  + [xl["max_abs_err"] if fused else 0,
-                     sc["max_abs_err"] if fused else 0])
+                  + [c["max_abs_err"] for c in checks])
         if err or not all(all(r["equal"]) for r in recs + on_cli[name]) \
-                or (fused and not (xl["equal"] and sc["equal"])):
+                or not all(c["equal"] for c in checks):
             raise AssertionError(f"{name} disagrees on main-path, cli, "
-                                 "xl_path or sc_path inputs")
+                                 "xl_path, sc_path or bench inputs")
         out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
             "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
@@ -866,6 +887,8 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
                                 else "sw_end_launches"],
             "xl_launches": xl["launches"] if fused else xl["end_launches"],
             "sc_launches": sc["launches"] if fused else sc["end_launches"],
+            "bench_launches": (bench["launches"] if fused
+                               else bench["end_launches"]),
             "mesh_launches": (mesh["pipeline"]["sw_launches"] if fused else
                               sum(v["sw_end_launches"] for k, v in
                                   mesh["pipeline"].items()
@@ -885,6 +908,7 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "cli_batches": [[r["B"], r["R"], r["W"]] for r in on_cli[name]],
             "xl_batches": xl["batches"] if fused else [],
             "sc_batches": sc["batches"] if fused else [],
+            "bench_batches": len(bench["batches"]) if fused else 0,
         })
     return out
 
@@ -1521,23 +1545,13 @@ INDEX_CHECK_BP = 20_000_000
 _COMP = (3, 2, 1, 0, 4, 5)
 
 
-def overlaps_any(intervals, starts, ends):
-    """Per read: overlaps some sorted (start, end) interval (the JAX
-    package's bench/hg_scale.py rule)."""
-    import numpy as np
-    if not len(intervals):
-        return np.zeros(len(starts), bool)
-    idx = np.searchsorted(intervals[:, 0], ends, side="right")
-    prev_end = np.maximum.accumulate(intervals[:, 1])
-    return (idx > 0) & (prev_end[np.clip(idx - 1, 0, None)] > starts)
-
-
 def background_pairs(rng, codes, n: int, avoid):
     """``n`` pairs drawn as main_path_inputs draws them (a ~200 bp fragment,
     mate 1 its 5' end forward, mate 2 its 3' end reverse-complemented, 0.1%
     substitutions), anywhere in ``codes`` but within 2 kb of the ``avoid``
     (start, end) spans: (n, 2, READ_LEN) int8."""
     import numpy as np
+    from anchored_fusion_tpu_torch.bench.hg_scale import overlaps_any
     comp = np.asarray(_COMP, np.int8)
     ar = np.arange(READ_LEN)
     avoid = np.asarray(sorted(avoid), np.int64)
@@ -1564,6 +1578,7 @@ def sample_reads(rng, codes, n: int, avoid=(), error_rate: float = 0.005):
     odd ones reverse-complemented, with substitutions (bench/hg_scale.py's
     sample_reads, in bulk): ((n, ROW) int8, true starts, true ends)."""
     import numpy as np
+    from anchored_fusion_tpu_torch.bench.hg_scale import overlaps_any
     avoid = np.asarray(avoid, np.int64).reshape(-1, 2)
     avoid = avoid[np.argsort(avoid[:, 0], kind="stable")]
     start = rng.integers(0, len(codes) - READ_LEN, n)
@@ -1579,16 +1594,6 @@ def sample_reads(rng, codes, n: int, avoid=(), error_rate: float = 0.005):
     reads = np.full((n, ROW), 5, np.int8)
     reads[:, :READ_LEN] = r
     return reads, start.astype(np.int64), start + READ_LEN - 1
-
-
-def recall_of(res, t_start, t_end, tol: int = 30):
-    """Per read: the best hit overlaps the true span ±tol."""
-    return (res.mapped & (res.ref_start <= t_end + tol)
-            & (res.ref_end >= t_start - tol))
-
-
-def _nbytes(*tensors) -> int:
-    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def phase_engines(genome) -> dict:
@@ -1812,6 +1817,8 @@ def phase_xl_path(tmpdir: str) -> dict:
     import torch
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
     from anchored_fusion_tpu_torch.bench import hg_e2e
+    from anchored_fusion_tpu_torch.bench.hg_scale import (
+        recall_of, tensor_bytes)
     from anchored_fusion_tpu_torch.config import PipelineConfig
     from anchored_fusion_tpu_torch.io.fastq import ReadBatch
     from anchored_fusion_tpu_torch.ops import sw_cuda
@@ -1860,9 +1867,9 @@ def phase_xl_path(tmpdir: str) -> dict:
                   "xl_pass1_hits", "xl_pass1_top_k", "xl_rescue_hits",
                   "xl_rescue_top_k", "gapped_refine")},
               "index_build_s": time.time() - t0,
-              "resident_bytes": {"table": _nbytes(ga.table),
-                                 "pos_div": _nbytes(ga.pos_div),
-                                 "tiles": _nbytes(ga.tiles)},
+              "resident_bytes": {"table": tensor_bytes(ga.table),
+                                 "pos_div": tensor_bytes(ga.pos_div),
+                                 "tiles": tensor_bytes(ga.tiles)},
               "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
         for which in ("cold", "warm"):
             xl[which] = _timed_call(pipe, anchor_codes, batch,
@@ -1903,11 +1910,9 @@ def phase_xl_path(tmpdir: str) -> dict:
         sh = {"engine": genome_engine_kind(L, align.index_stride),
               "class": type(ga).__name__, "n_shards": ga.n_shards,
               "index_build_s": time.time() - t0,
-              "resident_bytes": _nbytes(*[t for index, seq_t in ga.shards
-                                          for t in (index.table,
-                                                    index.keys_sorted,
-                                                    index.pos_sorted,
-                                                    seq_t)]),
+              "resident_bytes": sum(tensor_bytes(ix.table, ix.keys_sorted,
+                                                 ix.pos_sorted, seq_t)
+                                    for ix, seq_t in ga.shards),
               "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
         sh["programs_ms"] = sharded_programs(ga, reads)
         # at the CLI's point (H = 8) a k-mer keeps its 8 earliest positions
@@ -2319,6 +2324,250 @@ def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
     return rec
 
 
+# ---------------------------------------------------------------- bench
+
+BENCH_PAIRS = 11_258        # the reference tool's bundled sample's size
+BENCH_ANCHOR_BP = 6_783     # its anchor transcript (BCR, NM_004327.4)
+BENCH_JUNCTION = 3_235      # real_depth's BCR--ABL1 anchor breakpoint
+BENCH_PARTNER_BP = 5_400
+BENCH_DECOYS = 5
+BENCH_FUSION_SHARE = 0.15   # ~1,261 of its reads map to the anchor's half
+BENCH_ERROR = 0.002
+BENCH_LADDER_STEPS = 4
+BENCH_DEPTH_SMALL = ["--fusions", "1", "--coverages", "8,32"]
+BENCH_HG_GBP = 1.0          # hg_scale's default size
+# hg_scale's routes, each at a point whose recall docs/HG38_BENCH.json
+# records for the JAX package at 3.1 Gbp (round5_xl_k14, round3_sharded)
+BENCH_HG = {
+    "xl": ["--xl", "--index-stride", "8", "--kmer", "14", "--hits", "4,8",
+           "--profile-stages"],
+    "sharded": ["--index-stride", "4", "--hits", "8,16"],
+    "flat": ["--flat", "--index-stride", "4", "--hits", "8,16"],
+}
+BENCH_HG_READS = ["--reads", "16384", "--batch", "8192"]
+BENCH_RECALL = 0.99
+BENCH_NEG = []              # negative_scale at its defaults (1M reads)
+
+
+def wgsim_sample(d: str, seed: int, n_pairs: int = BENCH_PAIRS) -> dict:
+    """A read set in the form of the reference tool's bundled sample:
+    ``n_pairs`` pairs of 2 x READ_LEN bp from six source transcripts, one a
+    fusion whose 5' side is the first BENCH_JUNCTION bases of a
+    BENCH_ANCHOR_BP anchor transcript, five decoys.  Read names follow
+    wgsim's ``{src}_{start}_{end}_{e1}:0:0_{e2}:0:0_{hex}/1|2`` (1-based
+    fragment start and end, substitutions per mate); which mate reads
+    forward is drawn per pair, as wgsim does.  Writes
+    ``{d}/sample_1.fastq.gz``, ``_2`` and the anchor FASTA; returns their
+    paths and the pair counts."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.bench.simulate import (
+        write_fasta, write_fastq_pair)
+    from anchored_fusion_tpu_torch.ops.encode import decode_to_str
+
+    rng = np.random.default_rng(seed)
+    comp = np.asarray(_COMP, np.int8)
+    ar = np.arange(READ_LEN)
+    anchor = rng.integers(0, 4, BENCH_ANCHOR_BP).astype(np.int8)
+    partner = rng.integers(0, 4, BENCH_PARTNER_BP).astype(np.int8)
+    j = BENCH_JUNCTION
+    # the partner's first bases differ from the anchor's after the junction,
+    # so the junction sits at one base
+    partner[:2] = (anchor[j:j + 2] + 1) % 4
+    sources = {"FUS000001.1": np.concatenate([anchor[:j], partner])}
+    for i in range(BENCH_DECOYS):
+        c = chr(65 + i)
+        sources[f"DC{c}A-DC{c}B"] = rng.integers(
+            0, 4, int(rng.integers(1500, 4000))).astype(np.int8)
+    n_fus = int(round(n_pairs * BENCH_FUSION_SHARE))
+    per = (n_pairs - n_fus) // BENCH_DECOYS
+    counts = [n_fus] + [per] * (BENCH_DECOYS - 1)
+    counts.append(n_pairs - sum(counts))
+    names, r1, r2 = [], [], []
+    for (src, tx), n in zip(sources.items(), counts):
+        L = len(tx)
+        ins = np.clip(rng.normal(200, 20, n).astype(np.int64), READ_LEN, L)
+        start = (rng.random(n) * (L - ins + 1)).astype(np.int64)
+        fwd = tx[start[:, None] + ar]
+        rev = comp[tx[(start + ins - READ_LEN)[:, None] + ar]][:, ::-1]
+        errs = []
+        for m in (fwd, rev):
+            e = rng.random(m.shape) < BENCH_ERROR
+            m[e] = (m[e] + rng.integers(1, 4, int(e.sum()))) % 4
+            errs.append(e.sum(axis=1))
+        swap = rng.random(n) < 0.5
+        m1 = np.where(swap[:, None], rev, fwd)
+        m2 = np.where(swap[:, None], fwd, rev)
+        e1 = np.where(swap, errs[1], errs[0])
+        e2 = np.where(swap, errs[0], errs[1])
+        for k in range(n):
+            names.append(f"{src}_{start[k] + 1}_{start[k] + ins[k]}_"
+                         f"{e1[k]}:0:0_{e2[k]}:0:0_{k:x}")
+            r1.append(decode_to_str(m1[k]))
+            r2.append(decode_to_str(m2[k]))
+    paths = {"fastq1": os.path.join(d, "sample_1.fastq.gz"),
+             "fastq2": os.path.join(d, "sample_2.fastq.gz"),
+             "anchor": os.path.join(d, "anchor.fasta")}
+    write_fastq_pair(paths["fastq1"], paths["fastq2"], names, r1, r2)
+    write_fasta({"BCR": decode_to_str(anchor)}, paths["anchor"])
+    return {"paths": paths, "pairs": n_pairs, "fusion_pairs": n_fus,
+            "sources": {s: int(n) for s, n in zip(sources, counts)}}
+
+
+def run_harness(name: str, argv: list, device: str = "cuda") -> dict:
+    """``bench.<name>.main(argv + ["--device", device])`` in this process:
+    its JSON line, wall seconds, peak device bytes and fused SW launches."""
+    import importlib
+    import torch
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    mod = importlib.import_module(f"{PKG}.bench.{name}")
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = sw_cuda.launches
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv + ["--device", device])
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rc:
+        raise AssertionError(f"bench.{name} {argv}: exit {rc}")
+    return {"json": json.loads(out.getvalue().strip().splitlines()[-1]),
+            "wall_s": round(wall, 3),
+            "peak_device_bytes": (torch.cuda.max_memory_allocated()
+                                  if cuda else None),
+            "sw_launches": sw_cuda.launches - before}
+
+
+def _release():
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_bench(tmpdir: str, device: str = "cuda"):
+    """The bench harnesses, each through its ``main(argv)`` on ``device``,
+    its JSON line recorded beside its wall seconds, peak device bytes and SW
+    launches: depth_sweep at its defaults (every fusion detected from 32x
+    up), and BENCH_DEPTH_SMALL on ``device`` and on cpu (equal lines); the
+    surrogate's CLI and real_depth at its 8 halvings on a generated
+    wgsim-form sample of BENCH_PAIRS pairs (the fusion detected at full
+    depth), then downsample.halving_ladder's BENCH_LADDER_STEPS steps on its
+    FASTQ files (pair counts equal to downsample_batch's); hg_scale at
+    BENCH_HG_GBP through each BENCH_HG route (recall_unique >= BENCH_RECALL
+    at its highest H); negative_scale at its defaults; make_positive_assets
+    (byte-identical to data/positive_samples.txt).  Every fused SW launch is
+    captured; returns (record, captured batches, launches)."""
+    from anchored_fusion_tpu_torch.bench import (
+        downsample, make_positive_assets, surrogate)
+    from anchored_fusion_tpu_torch.io.fastq import read_fastq_pair
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    d = os.path.join(tmpdir, "bench")
+    os.makedirs(d, exist_ok=True)
+    rec = {"phase": "bench", "device": device, "cut": []}
+    problems = []
+    captured = []
+    with capturing_sw(captured):
+        r = rec["depth_sweep"] = run_harness("depth_sweep", ["--json-only"],
+                                             device)
+        for fusion, v in r["json"]["fusions"].items():
+            if not all(hit for cov, hit in v["curve"].items()
+                       if int(cov) >= 32):
+                problems.append(f"depth_sweep: {fusion} missed at >= 32x")
+        small = {dev: run_harness("depth_sweep",
+                                  BENCH_DEPTH_SMALL + ["--json-only"], dev)
+                 for dev in (device, "cpu")}
+        rec["depth_sweep_small"] = {"runs": small, "equal": (
+            small[device]["json"] == small["cpu"]["json"])}
+        if not rec["depth_sweep_small"]["equal"]:
+            problems.append("depth_sweep: the cuda and cpu lines differ")
+
+        t0 = time.time()
+        sample = wgsim_sample(d, seed=21)
+        p = sample.pop("paths")
+        rec["sample"] = {**sample, "make_s": round(time.time() - t0, 3)}
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            surrogate.main(["--fastq1", p["fastq1"], "--fastq2", p["fastq2"],
+                            "--anchor", p["anchor"],
+                            "--out_prefix", os.path.join(d, "surrogate")])
+        rec["surrogate"] = {"stdout": out.getvalue().strip(),
+                            "wall_s": round(time.time() - t0, 3)}
+        r = rec["real_depth"] = run_harness(
+            "real_depth", ["--fastq1", p["fastq1"], "--fastq2", p["fastq2"],
+                           "--anchor", p["anchor"], "--json-only"], device)
+        if not r["json"]["ladder"][0]["detected"]:
+            problems.append("real_depth: the fusion missed at full depth")
+
+        t0 = time.time()
+        ladder = downsample.halving_ladder(p["fastq1"], p["fastq2"],
+                                           os.path.join(d, "ds"),
+                                           steps=BENCH_LADDER_STEPS)
+        rb = read_fastq_pair(p["fastq1"], p["fastq2"])
+        want = []
+        for s in range(1, BENCH_LADDER_STEPS + 1):
+            rb = downsample.downsample_batch(rb, 0.5, s)
+            want.append(rb.n_pairs)
+        got = [n for _, _, n in ladder]
+        back = read_fastq_pair(*ladder[-1][:2]).n_pairs
+        rec["downsample"] = {"pairs": got, "downsample_batch_pairs": want,
+                             "last_read_back": back,
+                             "wall_s": round(time.time() - t0, 3)}
+        if got != want or back != want[-1]:
+            problems.append("downsample: ladder counts differ")
+
+        rec["hg_scale"] = {}
+        for route, argv in BENCH_HG.items():
+            _release()
+            r = rec["hg_scale"][route] = run_harness(
+                "hg_scale", ["--gbp", str(BENCH_HG_GBP), *BENCH_HG_READS,
+                             *argv, "--json-only"], device)
+            top = max(int(h) for h in argv[argv.index("--hits") + 1]
+                      .split(","))
+            recall = r["json"]["sweep"][f"H{top}"]["recall_unique"]
+            if not recall >= BENCH_RECALL:
+                problems.append(f"hg_scale {route}: recall_unique {recall} "
+                                f"at H {top} < {BENCH_RECALL}")
+        _release()
+        rec["negative_scale"] = run_harness("negative_scale", BENCH_NEG,
+                                            device)
+        launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+
+    t0 = time.time()
+    asset = os.path.join(d, "positive_samples.txt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_positive_assets.main(["--out", asset])
+    with open(asset, "rb") as a, \
+            open(os.path.join(HERE, "data", "positive_samples.txt"),
+                 "rb") as b:
+        identical = a.read() == b.read()
+    rec["make_positive_assets"] = {"identical": identical,
+                                   "wall_s": round(time.time() - t0, 3)}
+    if not identical:
+        problems.append("make_positive_assets: rows differ from the asset")
+    if device == "cuda":
+        quiet = [n for n in ("depth_sweep", "real_depth")
+                 if not rec[n]["sw_launches"]]
+        quiet += [f"hg_scale {n}" for n, r in rec["hg_scale"].items()
+                  if not r["sw_launches"]]
+        if quiet:
+            problems.append(f"no SW kernel launched by {quiet}")
+    rec["sw_launches"] = launches
+    rec["sw_end_launches"] = end_launches
+    rec["sw_batches"] = len(captured)
+    emit(rec)
+    if problems:
+        raise AssertionError("bench: " + "; ".join(problems))
+    return rec, captured, launches
+
+
 def main_path_index(world: dict, tmpdir: str) -> dict:
     """main_path's genome index arrays saved for the mesh phase's ranks."""
     import numpy as np
@@ -2332,18 +2581,37 @@ def main_path_index(world: dict, tmpdir: str) -> dict:
     return {**paths, "k": idx.k, "kb": idx.kb, "ref_len": idx.ref_len}
 
 
+CHECK_PAIRS = 65_536     # pairs a plain SW call takes in check_batches
+
+
 def check_batches(captured) -> dict:
     """The fused SW kernel against its plain version on every captured
-    batch (launches made here are not counted on any path)."""
+    batch (launches made here are not counted on any path).  Each pair's
+    result depends on that pair alone, so batches of one (R, W) go through
+    the plain version together, up to CHECK_PAIRS pairs a call: its time is
+    a loop over the window's columns, whatever the batch."""
     import torch
     from anchored_fusion_tpu_torch.ops import sw_cuda
     from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain
-    err, equal = 0, True
+    groups = {}
     for reads, wins in captured:
         got = sw_cuda.sw_align_fused_cuda(reads, wins)
-        want = sw_align_fused_plain(reads, wins)
-        equal = equal and bool(torch.equal(got, want))
-        err = max(err, int((got - want).abs().max()) if got.numel() else 0)
+        groups.setdefault((reads.shape[1], wins.shape[1]), []).append(
+            (reads, wins, got))
+    err, equal = 0, True
+    for batches in groups.values():
+        while batches:
+            take, n = [], 0
+            while batches and (not take
+                               or n + batches[0][0].shape[0] <= CHECK_PAIRS):
+                take.append(batches.pop(0))
+                n += take[-1][0].shape[0]
+            got = torch.cat([g for _, _, g in take], dim=1)
+            want = sw_align_fused_plain(torch.cat([r for r, _, _ in take]),
+                                        torch.cat([w for _, w, _ in take]))
+            equal = equal and bool(torch.equal(got, want))
+            err = max(err, int((got - want).abs().max()) if got.numel()
+                      else 0)
     return {"batches": [[*r.shape, w.shape[1]] for r, w in captured],
             "max_abs_err": err, "equal": equal}
 
@@ -2406,14 +2674,23 @@ def main() -> int:
             del cli_inp, refs, art
             gc.collect()
             torch.cuda.empty_cache()
+            bench, bench_captured, bench_launches = run("bench", phase_bench,
+                                                        tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
             xl, xl_captured, xl_launches = run("xl_path", phase_xl_path, tmp)
         xl_check = {**check_batches(xl_captured), "launches": xl_launches,
                     "end_launches": xl["sw_end_launches"]}
         sc_check = {**check_batches(sc_captured), "launches": sc_launches,
                     "end_launches": sc["sw_end_launches"]}
+        bench_check = {**check_batches(bench_captured),
+                       "launches": bench_launches,
+                       "end_launches": bench["sw_end_launches"]}
+        del bench_captured
         kernels = kernels_on_main_path_inputs(captured, rec, cli,
                                               cli_captured, xl_check,
-                                              sc_check, mesh, long_rows)
+                                              sc_check, mesh, bench_check,
+                                              long_rows)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})

@@ -38,7 +38,7 @@ def _few_threads():
 def _spawn(name, world, args=(), init=True, timeout=200):
     from anchored_fusion_tpu_torch.parallel.launch import run_ranks
     return run_ranks(f"{HERE}:{name}", world, args, timeout=timeout,
-                     init=init)
+                     init=init, device="cpu")
 
 
 # ------------------------------------------------------------ the ranks
@@ -191,6 +191,18 @@ def test_backend_rule_and_one_process():
     assert D.world_size() == 1 and D.rank() == 0
     assert D.host_shard(10) == slice(0, 10)
     D.barrier()                      # a no-op with one process
+
+
+def test_run_ranks_defaults_to_the_card():
+    """Without ``device`` the ranks run on cuda: on a machine without a card
+    each rank raises through resolve_device, and so does run_ranks."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    from anchored_fusion_tpu_torch.parallel.launch import run_ranks
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(f"{HERE}:_ranks3", 2, (7, _records(14)), timeout=120)
+    assert "torch.cuda.is_available() is False" in str(err.value)
+    assert "rank 0 ---" in str(err.value)
 
 
 def test_host_shard_and_allgather_alignment_short_last_shard():

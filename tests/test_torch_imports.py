@@ -51,7 +51,10 @@ def test_port_imports_no_jax():
                  "bench.hg_scale", "bench.hg_e2e", "cli.sc", "io.sam",
                  "io.bam", "models.positive", "models.bilstm",
                  "models.svm", "parallel.mesh", "parallel.collectives",
-                 "parallel.distributed", "parallel.launch"):
+                 "parallel.distributed", "parallel.launch",
+                 "bench.downsample", "bench.make_positive_assets",
+                 "bench.negative_scale", "bench.depth_sweep",
+                 "bench.surrogate", "bench.real_depth"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

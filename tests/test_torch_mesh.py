@@ -311,7 +311,8 @@ def inputs(tmp_path_factory):
 def _spawn(name, world, inp):
     from anchored_fusion_tpu_torch.parallel.launch import run_ranks
     args = {k: v for k, v in inp.items() if k not in ("sg", "genome_seq")}
-    return run_ranks(f"{HERE}:{name}", world, (args,), timeout=200)
+    return run_ranks(f"{HERE}:{name}", world, (args,), timeout=200,
+                     device="cpu")
 
 
 @pytest.fixture(scope="module")
