@@ -10,8 +10,9 @@ fixtures, then drives the main path — ``FusionPipeline.call_gene`` on the
 flat genome engine — at a real size: a 100 Mbp genome, a ~7 kb anchor
 transcript and 1,000,000 read pairs of 101 bp; the single-cell path on the
 same genome (96 cells, 4,800,000 pairs) and through its CLI; the bench
-harnesses at their own sizes; and the hg38-scale path on a 3.1 Gbp
-genome.  Each phase prints one JSON line:
+harnesses at their own sizes, then the headline harness (the twin of the
+JAX package's root bench.py) on the bench phase's sample; and the
+hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
   kernel     registers and spill bytes of every kernel instantiation
@@ -92,6 +93,14 @@ genome.  Each phase prints one JSON line:
              reads); make_positive_assets byte-identical to
              data/positive_samples.txt.  Every SW batch is captured and held
              equal to the plain SW
+  headline   bench/headline.py (the twin of the JAX package's root
+             bench.py) on the bench phase's sample, --expect-mapped from
+             the sample aligned on cpu: its JSON line (streamed anchored
+             reads/s with refinement off, the host-card vitals, call_gene
+             reads/s on the surrogate genome, dp 1-8 and mp 2 scaling over
+             ranks sharing the card), wall seconds, peak device memory, SW
+             launches, host_share = 1 - streamed / device-only reads/s;
+             every scaling key present, every SW batch equal to the plain SW
   xl_path    call_gene on bench/hg_e2e.py's 3.1 Gbp genome with 1,000,000
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
@@ -102,14 +111,15 @@ genome.  Each phase prints one JSON line:
   (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path, in
-             the cli run, in xl_path, in sc_path and in bench (every
+             the cli run, in xl_path, in sc_path, in bench (every
              refining call of depth_sweep, real_depth and hg_scale: ~2 a
-             call_gene, 1 an align batch), and their time, bound and plain
+             call_gene, 1 an align batch) and in headline (its parity run
+             and call_gene), and their time, bound and plain
              time on the main path's own inputs (sw_end, which no path
              calls, with random masks); sw_align_fused is also held equal
              to the plain SW on every batch the in-process cli run,
-             xl_path, sc_path and bench handed it; the launches in the mesh
-             phase's ranks and the long-row times are added
+             xl_path, sc_path, bench and headline handed it; the launches
+             in the mesh phase's ranks and the long-row times are added
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -839,18 +849,19 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
 
 def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
                                 cli_captured, xl: dict, sc: dict,
-                                mesh: dict, bench: dict,
+                                mesh: dict, bench: dict, headline: dict,
                                 long_rows: list) -> list[dict]:
     """Both SW entries against their plain versions on the main path's
     inputs, timed: the fused entry on the batches call_gene handed it, the
     forward-only entry (which call_gene does not call) on the same batches
     with random validity masks.  The fused entry is also held equal to the
-    plain SW on every batch of the in-process cli run, and ``xl``, ``sc``
-    and ``bench`` hold its check on every batch of xl_path, sc_path and the
-    bench phase (check_batches).  The entries of the kernels line, with the
-    launches of main_path, of the cli phase, of xl_path, of sc_path, of the
-    mesh phase's ranks and of the bench phase, and the kernel phase's
-    long-row batches."""
+    plain SW on every batch of the in-process cli run, and ``xl``, ``sc``,
+    ``bench`` and ``headline`` hold its check on every batch of xl_path,
+    sc_path, the bench phase and the headline phase (check_batches).  The
+    entries of the kernels line, with the launches of main_path, of the cli
+    phase, of xl_path, of sc_path, of the mesh phase's ranks, of the bench
+    phase and of the headline phase, and the kernel phase's long-row
+    batches."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -869,13 +880,14 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
     out = []
     for name, recs in cases.items():
         fused = name == "sw_align_fused"
-        checks = (xl, sc, bench) if fused else ()
+        checks = (xl, sc, bench, headline) if fused else ()
         err = max([r["max_abs_err"] for r in recs + on_cli[name]]
                   + [c["max_abs_err"] for c in checks])
         if err or not all(all(r["equal"]) for r in recs + on_cli[name]) \
                 or not all(c["equal"] for c in checks):
             raise AssertionError(f"{name} disagrees on main-path, cli, "
-                                 "xl_path, sc_path or bench inputs")
+                                 "xl_path, sc_path, bench or headline "
+                                 "inputs")
         out.append({
             "name": name, "route": "cuda", "source": f"{PKG}/csrc/sw.cu",
             "replaces": ("anchored_fusion_tpu/ops/sw_pallas.py:43"
@@ -889,6 +901,8 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "sc_launches": sc["launches"] if fused else sc["end_launches"],
             "bench_launches": (bench["launches"] if fused
                                else bench["end_launches"]),
+            "headline_launches": (headline["launches"] if fused
+                                  else headline["end_launches"]),
             "mesh_launches": (mesh["pipeline"]["sw_launches"] if fused else
                               sum(v["sw_end_launches"] for k, v in
                                   mesh["pipeline"].items()
@@ -909,6 +923,8 @@ def kernels_on_main_path_inputs(captured, rec: dict, cli: dict,
             "xl_batches": xl["batches"] if fused else [],
             "sc_batches": sc["batches"] if fused else [],
             "bench_batches": len(bench["batches"]) if fused else 0,
+            "headline_batches": (len(headline["batches"]) if fused
+                                 else 0),
         })
     return out
 
@@ -2490,7 +2506,7 @@ def phase_bench(tmpdir: str, device: str = "cuda"):
 
         t0 = time.time()
         sample = wgsim_sample(d, seed=21)
-        p = sample.pop("paths")
+        p = sample["paths"]
         rec["sample"] = {**sample, "make_s": round(time.time() - t0, 3)}
         t0 = time.time()
         out = io.StringIO()
@@ -2565,6 +2581,82 @@ def phase_bench(tmpdir: str, device: str = "cuda"):
     emit(rec)
     if problems:
         raise AssertionError("bench: " + "; ".join(problems))
+    return rec, captured, launches
+
+
+# ---------------------------------------------------------------- headline
+
+HEADLINE_MAX_RANKS = 8      # the largest dp of the scaling harness
+
+
+def scaling_problems(scaling: dict, max_ranks: int) -> list[str]:
+    """The keys of bench.py's scaling record that ``scaling`` lacks, for
+    every dp up to ``max_ranks`` and the mp2 spawn."""
+    attrib = {"fixed_overhead_s", "marginal_reads_per_s",
+              "overhead_frac_at_big", "bottleneck"}
+    dps = [dp for dp in (1, 2, 4, 8) if dp <= max_ranks]
+    want = {f"dp{dp}" for dp in dps} | {f"efficiency_dp{dp}"
+                                        for dp in dps[1:]}
+    problems = []
+    for stage in ("anchored", "genome"):
+        for regime in ("strong", "weak"):
+            missing = want - set(scaling[stage][regime])
+            if missing:
+                problems.append(f"scaling {stage} {regime}: no "
+                                f"{sorted(missing)}")
+        if set(scaling[stage]["attrib_dp1"]) != attrib:
+            problems.append(f"scaling {stage}: attrib_dp1 keys")
+    for key in ("mp2_capacity", "mp2_vs_dp1", "mp2_attrib"):
+        if key not in scaling["genome"]:
+            problems.append(f"scaling genome: no {key}")
+    return problems
+
+
+def phase_headline(sample: dict, device: str = "cuda"):
+    """bench/headline.py (the twin of the JAX package's root bench.py) in
+    this process through its ``main(argv)`` on ``device``, on the bench
+    phase's generated sample (``sample``: wgsim_sample's paths), with
+    ``--expect-mapped`` from the same sample aligned on cpu with refinement
+    off, and dp up to HEADLINE_MAX_RANKS.  The harness asserts its stream
+    parity and the BCR--ABL1 call at 3235 itself; this phase adds
+    ``host_share`` = 1 - streamed / device-only reads/s, and requires every
+    scaling key.  Every fused SW launch is captured; returns (record,
+    captured batches, launches)."""
+    from anchored_fusion_tpu_torch.align.aligner import align_to_reference
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.io.fasta import read_fasta
+    from anchored_fusion_tpu_torch.io.fastq import read_fastq_pair
+    from anchored_fusion_tpu_torch.ops import sw_cuda
+
+    rec = {"phase": "headline", "device": device}
+    t0 = time.time()
+    rb = read_fastq_pair(sample["fastq1"], sample["fastq2"])
+    seqs = rb.seq.reshape(-1, rb.max_len)
+    res = align_to_reference(seqs, read_fasta(sample["anchor"]).seq,
+                             AlignConfig(gapped_refine=False),
+                             chunk=-(-len(seqs) // 128) * 128, device="cpu")
+    expect = int(res.mapped.sum())
+    rec["expect_mapped"] = {"cpu": expect,
+                            "wall_s": round(time.time() - t0, 3)}
+    argv = ["--fastq1", sample["fastq1"], "--fastq2", sample["fastq2"],
+            "--anchor", sample["anchor"], "--expect-mapped", str(expect),
+            "--max-ranks", str(HEADLINE_MAX_RANKS)]
+    captured = []
+    with capturing_sw(captured):
+        r = rec["headline"] = run_harness("headline", argv, device)
+        launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+    line = r["json"]
+    rec["host_share"] = round(
+        1 - line["value"] / line["relay"]["compute_reads_per_s"], 4)
+    problems = scaling_problems(line["scaling"], HEADLINE_MAX_RANKS)
+    if device == "cuda" and not launches:
+        problems.append("no SW kernel launched by the pipeline")
+    rec["sw_launches"] = launches
+    rec["sw_end_launches"] = end_launches
+    rec["sw_batches"] = len(captured)
+    emit(rec)
+    if problems:
+        raise AssertionError("headline: " + "; ".join(problems))
     return rec, captured, launches
 
 
@@ -2676,6 +2768,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             bench, bench_captured, bench_launches = run("bench", phase_bench,
                                                         tmp)
+            head, head_captured, head_launches = run(
+                "headline", phase_headline, bench["sample"]["paths"])
             gc.collect()
             torch.cuda.empty_cache()
             xl, xl_captured, xl_launches = run("xl_path", phase_xl_path, tmp)
@@ -2686,11 +2780,14 @@ def main() -> int:
         bench_check = {**check_batches(bench_captured),
                        "launches": bench_launches,
                        "end_launches": bench["sw_end_launches"]}
-        del bench_captured
+        head_check = {**check_batches(head_captured),
+                      "launches": head_launches,
+                      "end_launches": head["sw_end_launches"]}
+        del bench_captured, head_captured
         kernels = kernels_on_main_path_inputs(captured, rec, cli,
                                               cli_captured, xl_check,
                                               sc_check, mesh, bench_check,
-                                              long_rows)
+                                              head_check, long_rows)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})

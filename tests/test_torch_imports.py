@@ -54,7 +54,7 @@ def test_port_imports_no_jax():
                  "parallel.distributed", "parallel.launch",
                  "bench.downsample", "bench.make_positive_assets",
                  "bench.negative_scale", "bench.depth_sweep",
-                 "bench.surrogate", "bench.real_depth"):
+                 "bench.surrogate", "bench.real_depth", "bench.headline"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
