@@ -4,10 +4,12 @@ One engine for every small-reference alignment of the pipeline (reads vs
 the anchored transcript, consensus vs candidate regions):
 
   1. **Seed** — exact match counts on *every* diagonal as one one-hot
-     matrix product (ops/diagonal.py).  Both strands.
+     matrix product, reduced to each 128-diagonal block's maximum
+     (ops/anchor_cuda.py::seed_block_max).  Both strands.
   2. **Extend** — for the top-K diagonals, gather the reference window and run
-     the Kadane maximal-segment scan (ops/kadane.py) with bwa-mem scoring
-     (+1/-4): soft-clip boundaries identical to ungapped bwa-mem extension.
+     the Kadane maximal-segment scan with bwa-mem scoring (+1/-4): soft-clip
+     boundaries identical to ungapped bwa-mem extension; then the strand
+     fold (ops/anchor_cuda.py::extend_fold).
   3. **Refine** (optional) — affine-gap Smith-Waterman over widened windows
      (align/refine.py) for indel-containing reads.
 
@@ -31,9 +33,11 @@ import torch
 
 from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.ops.encode import PAD, revcomp
-from anchored_fusion_tpu_torch.ops.diagonal import (
-    build_seed_matrix, diag_match_counts_w)
-from anchored_fusion_tpu_torch.ops import kadane
+from anchored_fusion_tpu_torch.ops.diagonal import diag_match_counts_w
+from anchored_fusion_tpu_torch.ops import anchor_cuda
+from anchored_fusion_tpu_torch.ops.anchor import (
+    SeedPatch, block_max_plain, block_topk_plain, extend_segments,
+    pad_reference, seed_patch)
 from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 
@@ -84,12 +88,13 @@ def _ref_digest(ref_codes: np.ndarray) -> bytes:
 
 def _seed_matrix_cached(ref_codes: np.ndarray, read_len: int, stride: int,
                         device: torch.device):
-    """(seed patch matrix, window matrix) for a small reference, cached."""
+    """(SeedPatch, the reference PAD-extended by R codes each side) for a
+    small reference, cached."""
     key = (_ref_digest(ref_codes), read_len, stride, str(device))
     Ws = _SEED_CACHE.get(key)
     if Ws is None:
-        Ws = (build_seed_matrix(ref_codes, read_len, device, stride=stride),
-              build_window_matrix(ref_codes, read_len, device))
+        Ws = (seed_patch(ref_codes, read_len, device, stride=stride),
+              pad_reference(ref_codes, read_len, device))
         if len(_SEED_CACHE) > 16:
             _SEED_CACHE.clear()
         _SEED_CACHE[key] = Ws
@@ -108,7 +113,8 @@ def both_strands(reads: torch.Tensor):
     Forward half then reverse-complement half.  The reverse complement is a
     flip plus arithmetic complement, which leaves the PAD run at the FRONT of
     each reverse row; the per-row pad width is returned as a coordinate
-    offset that :func:`fold_strands` subtracts from read coordinates.
+    offset that the strand fold (ops/anchor.py::fold_strands) subtracts
+    from read coordinates.
     """
     B, R = reads.shape
     lens = (reads != PAD).sum(dim=1)
@@ -118,113 +124,26 @@ def both_strands(reads: torch.Tensor):
     return flat, coord_off
 
 
-def build_window_matrix(ref_codes: np.ndarray, read_len: int,
-                        device) -> torch.Tensor:
-    """All reference windows as one (L+R+1, R) int8 matrix (PAD-guarded).
-
-    Row j holds ``ref[j-R : j-R+R]`` of the PAD-extended reference, i.e. the
-    window for candidate offset ``j - R``.
-    """
-    R = read_len
-    refp = np.concatenate([np.full(R, PAD, np.int8),
-                           np.asarray(ref_codes, np.int8),
-                           np.full(R, PAD, np.int8)])
-    W2 = np.lib.stride_tricks.sliding_window_view(refp, R)
-    return torch.from_numpy(np.ascontiguousarray(W2)).to(device)
-
-
-def extend_diagonals_all(flat: torch.Tensor, ref: Optional[torch.Tensor],
+def extend_diagonals_all(flat: torch.Tensor, ref: torch.Tensor,
                          offs: torch.Tensor, match: int, mismatch: int,
-                         win_matrix: Optional[torch.Tensor] = None,
-                         ref_prepad: int = 0) -> dict:
+                         ref_prepad: int) -> dict:
     """Kadane extension of every candidate diagonal (multi-hit, BLAT-like).
 
     Args:
       flat: (N, R) oriented reads.
       ref:  (L,) reference codes, already ``[PAD*P, genome, PAD*P]`` with
-        ``ref_prepad=P`` (unused when ``win_matrix`` is given).
+        ``ref_prepad=P`` (a small reference: pad_reference, P = R).
       offs: (N, k) int32 candidate ref offsets of read position 0 per read
         (genome frame, i.e. NOT including the prepad).
-      win_matrix: precomputed window matrix (small references).
     Returns dict of (N, k): score, start, end, matches, length — read-frame
     coordinates of each candidate's best segment.
     """
-    N, R = flat.shape
-    if win_matrix is not None:
-        row = torch.clamp(offs + R, 0, win_matrix.shape[0] - 1)
-        win = win_matrix[row.long()]                         # (N, k, R)
-    else:
-        # prepadded reference: window for offset o covers genome [o, o+R) =
-        # ref[o+P : o+P+R]; R <= P keeps every clipped window inside PAD
-        if R > ref_prepad:
-            raise ValueError(f"read width {R} exceeds ref_prepad {ref_prepad}")
-        L = ref.shape[0]
-        start = torch.clamp(offs + ref_prepad, 0, L - R).long()
-        win = ref[start[..., None] + torch.arange(R, device=flat.device)]
-    read_valid = (flat != PAD)[:, None, :]
-    valid = (win != PAD) & read_valid
-    sc, ism = kadane.segment_scores(flat[:, None, :].expand(win.shape), win,
-                                    valid, match=match, mismatch=mismatch)
-    return kadane.best_segment(sc, ism)
-
-
-def extend_diagonals(flat: torch.Tensor, ref: Optional[torch.Tensor],
-                     offs: torch.Tensor, match: int, mismatch: int,
-                     win_matrix: Optional[torch.Tensor] = None,
-                     ref_prepad: int = 0) -> dict:
-    """Best-hit Kadane extension (see :func:`extend_diagonals_all`).
-
-    Returns dict of (N,): score, read_start/end, matches, length, off,
-    second (score of the runner-up candidate).
-    """
-    N = flat.shape[0]
-    k = offs.shape[1]
-    seg = extend_diagonals_all(flat, ref, offs, match, mismatch, win_matrix,
-                               ref_prepad)
-    order = torch.argsort(-seg["score"], dim=1, stable=True)
-    b1 = order[:, :1]
-    b2 = order[:, min(1, k - 1):min(1, k - 1) + 1]
-    take = lambda a, j: torch.gather(a, 1, j)[:, 0]
-    return {
-        "score": take(seg["score"], b1),
-        "second": (take(seg["score"], b2) if k > 1 else
-                   torch.zeros(N, dtype=torch.int32, device=flat.device)),
-        "rs": take(seg["start"], b1),
-        "re": take(seg["end"], b1),
-        "mt": take(seg["matches"], b1),
-        "ln": take(seg["length"], b1),
-        "off": take(offs, b1),
-    }
-
-
-def fold_strands(cand: dict, B: int, coord_off: torch.Tensor) -> dict:
-    """Fold the (2B,) forward/revcomp candidate halves into per-read records.
-
-    ``coord_off`` (from :func:`both_strands`) converts raw reverse-row
-    coordinates (PAD-prefixed) into the left-aligned oriented-read convention;
-    reference coordinates use the raw values, so they are unaffected.
-    """
-    fwd = {n: v[:B] for n, v in cand.items()}
-    rev = {n: v[B:] for n, v in cand.items()}
-    use_rev = rev["score"] > fwd["score"]
-    pick = lambda n: torch.where(use_rev, rev[n], fwd[n])
-    off_best = pick("off")
-    rs_raw = pick("rs")
-    re_raw = pick("re")
-    co = torch.where(use_rev, coord_off[B:], coord_off[:B])
-    return {
-        "score": pick("score"),
-        "strand": use_rev.to(torch.int8),
-        "read_start": rs_raw - co,
-        "read_end": re_raw - co,
-        "matches": pick("mt"),
-        "length": pick("ln"),
-        "second_score": torch.maximum(
-            torch.where(use_rev, rev["second"], fwd["second"]),
-            torch.where(use_rev, fwd["score"], rev["score"])),
-        "ref_start": off_best + rs_raw,
-        "ref_end": off_best + re_raw,
-    }
+    R = flat.shape[1]
+    # window for offset o covers genome [o, o+R) = ref[o+P : o+P+R]; R <= P
+    # keeps every clipped window inside PAD
+    if R > ref_prepad:
+        raise ValueError(f"read width {R} exceeds ref_prepad {ref_prepad}")
+    return extend_segments(flat, ref, offs, ref_prepad, match, mismatch)
 
 
 def _block_topk_diagonals(counts: torch.Tensor, k: int,
@@ -235,38 +154,25 @@ def _block_topk_diagonals(counts: torch.Tensor, k: int,
     first arg-max lane inside each selected block.  Counts go through
     bfloat16 and the ragged last block pads with -1, as in the JAX package.
     """
-    N, D = counts.shape
-    Dp = -(-D // block) * block
-    c = counts.to(torch.bfloat16).float()
-    if Dp != D:
-        c = torch.nn.functional.pad(c, (0, Dp - D), value=-1.0)
-    cb = c.reshape(N, Dp // block, block)
-    bmax = cb.max(dim=-1).values                            # (N, D/128)
-    kk = min(k, bmax.shape[1])
-    _, bidx = stable_topk(bmax, kk)                          # (N, kk)
-    sel = torch.gather(cb, 1, bidx[:, :, None].expand(N, kk, block))
-    lane = kadane.first_argmax(sel)                          # (N, kk)
-    idx = (bidx * block + lane).to(torch.int32)
-    if kk < k:
-        idx = torch.cat([idx, idx[:, -1:].expand(N, k - kk)], dim=1)
-    return torch.clamp(idx, max=D - 1)
+    return block_topk_plain(*block_max_plain(counts, block), k,
+                            counts.shape[1], block)
 
 
-def _align_core(reads: torch.Tensor, seed_matrix: torch.Tensor,
-                win_matrix: torch.Tensor, k: int, match: int, mismatch: int,
-                stride: int = 1) -> dict:
-    """Both-strand top-k diagonal seeding + Kadane extension.
+def _align_core(reads: torch.Tensor, seed: SeedPatch, refp: torch.Tensor,
+                k: int, match: int, mismatch: int, stride: int = 1) -> dict:
+    """Both-strand top-k diagonal seeding + Kadane extension: the seeding
+    kernel's block maxima, then the extension kernel's block mode (plain
+    versions on the CPU).
 
     Returns per-read dict (all (B,)): score, strand, read_start, read_end,
     ref_start, ref_end, matches, length, second_score.
     """
-    B, R = reads.shape
+    R = reads.shape[1]
     flat, coord_off = both_strands(reads)                  # (2B, R)
-    counts = diag_match_counts_w(flat, seed_matrix, stride=stride)
-    idx = _block_topk_diagonals(counts, k)                 # (2B, k)
-    offs = idx - (R - 1)                                   # ref offset of read pos 0
-    cand = extend_diagonals(flat, None, offs, match, mismatch, win_matrix)
-    return fold_strands(cand, B, coord_off)
+    bmax, lane = anchor_cuda.seed_block_max(flat, seed, stride)
+    return anchor_cuda.extend_fold(flat, coord_off, refp, R, match,
+                                   mismatch, k, bmax=bmax, lane=lane,
+                                   D=seed.diagonals)
 
 
 @dataclasses.dataclass
@@ -289,14 +195,14 @@ class MultiHits:
 
 
 def _align_multi_core(reads: torch.Tensor, seed_matrix: torch.Tensor,
-                      win_matrix: torch.Tensor, k: int, match: int,
+                      refp: torch.Tensor, k: int, match: int,
                       mismatch: int, stride: int = 1) -> dict:
     R = reads.shape[1]
     flat, _ = both_strands(reads)
     counts = diag_match_counts_w(flat, seed_matrix, stride=stride)
     _, idx = stable_topk(counts.to(torch.bfloat16).float(), k)
     offs = idx.to(torch.int32) - (R - 1)
-    seg = extend_diagonals_all(flat, None, offs, match, mismatch, win_matrix)
+    seg = extend_diagonals_all(flat, refp, offs, match, mismatch, R)
     seg["off"] = offs
     return seg
 
@@ -381,9 +287,10 @@ def align_to_reference_multi(
     read_lens = (seqs != PAD).sum(axis=1).astype(np.int32)
     if stride is None:
         stride = cfg.seed_stride
-    W, W2 = _seed_matrix_cached(ref_codes, R, stride, device)
+    seed, refp = _seed_matrix_cached(ref_codes, R, stride, device)
     seg = to_numpy(_align_multi_core(
-        torch.from_numpy(seqs).to(device), W, W2, top_k, cfg.match_score,
+        torch.from_numpy(seqs).to(device), seed.f32, refp, top_k,
+        cfg.match_score,
         cfg.mismatch_penalty, stride))
     return _flatten_multi(seg, read_lens, B, top_k, min_score, min_identity,
                           min_seg_len, R)
@@ -432,8 +339,8 @@ def align_to_reference(
 ) -> AlignmentResult:
     """Align a batch of encoded reads against one reference array.
 
-    Chunks the batch to bound the (2*chunk, L+R-1) seeding matrix in device
-    memory, applies the stage thresholds, runs the gapped refinement when
+    Chunks the batch (bounding the plain seeding's (2*chunk, L+R-1) count
+    matrix on the CPU; the card's kernel keeps none), applies the stage thresholds, runs the gapped refinement when
     ``cfg.gapped_refine`` is set, and returns numpy struct-of-arrays.
     Results do not depend on ``chunk``.
 
@@ -462,11 +369,11 @@ def align_to_reference(
         seqs = seqs[None]
     B, R = seqs.shape
     stride = cfg.seed_stride
-    W, W2 = _seed_matrix_cached(ref_codes, R, stride, device)
+    seed, refp = _seed_matrix_cached(ref_codes, R, stride, device)
     outs = []
     for lo in range(0, B, chunk):
         sub = torch.from_numpy(seqs[lo:lo + chunk]).to(device)
-        outs.append(_align_core(sub, W, W2, top_k, cfg.match_score,
+        outs.append(_align_core(sub, seed, refp, top_k, cfg.match_score,
                                 cfg.mismatch_penalty, stride))
     res = records_to_result(concat_records(outs), min_score,
                             min_identity, min_seg_len)

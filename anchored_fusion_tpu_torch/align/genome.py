@@ -2,8 +2,10 @@
 
 The genome-side counterpart of ``align_to_reference``: seeds come from the
 sorted k-mer index (index/kmer.py) instead of the all-diagonal product; the
-extension path (Kadane over gathered windows, strand folding) is shared with
-the small-reference engine, so both emit identical AlignmentResult records.
+extension path (Kadane over gathered windows, strand folding: the
+extension kernel's offsets mode, ops/anchor_cuda.py::extend_fold) is shared
+with the small-reference engine, so both emit identical AlignmentResult
+records.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from anchored_fusion_tpu_torch.index.kmer import (
     read_kmer_offsets)
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.align.aligner import (
-    REF_PREPAD, MultiHits, both_strands, concat_records, extend_diagonals,
-    extend_diagonals_all, fold_strands, _flatten_multi, records_to_result,
-    to_numpy)
+    REF_PREPAD, MultiHits, both_strands, concat_records,
+    extend_diagonals_all, _flatten_multi, records_to_result, to_numpy)
+from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
 from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 # Offset given to empty vote slots: far outside any genome, so its window is
@@ -155,10 +157,9 @@ class GenomeAligner:
             flat, coord_off = both_strands(reads)
             offs = _seed_diagonals(flat, self.index, offsets, self.stride,
                                    max_hits, top_k)
-            cand = extend_diagonals(flat, self.codes, offs, cfg.match_score,
-                                    cfg.mismatch_penalty,
-                                    ref_prepad=self.ref_prepad)
-            outs.append(fold_strands(cand, reads.shape[0], coord_off))
+            outs.append(extend_fold(flat, coord_off, self.codes,
+                                    self.ref_prepad, cfg.match_score,
+                                    cfg.mismatch_penalty, top_k, offs=offs))
         res = records_to_result(concat_records(outs), min_score,
                                 min_identity, min_seg_len)
         if cfg.gapped_refine:

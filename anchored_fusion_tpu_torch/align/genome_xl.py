@@ -192,7 +192,7 @@ def _xl_extend_core(reads, tiles, rows_c, cols_c, top_k: int, match: int,
         "row": _pick(rows_c, b1),
         "col": _pick(cols_c, b1),
     }
-    # fold strands (aligner.fold_strands with (row, col) for 'off')
+    # fold strands (ops/anchor.py::fold_strands with (row, col) for 'off')
     fwd = {n: v[:B] for n, v in cand.items()}
     rev = {n: v[B:] for n, v in cand.items()}
     use_rev = rev["score"] > fwd["score"]

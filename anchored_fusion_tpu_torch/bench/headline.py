@@ -157,10 +157,11 @@ def relay_attribution(seqs: np.ndarray, anchor_codes: np.ndarray,
         h2d = round(8 * batch.nbytes / (time.perf_counter() - t0) / 1e6, 1)
     cfg = AlignConfig()
     db = torch.from_numpy(batch).to(device)
-    W, W2 = _seed_matrix_cached(anchor_codes, R, cfg.seed_stride, device)
+    seed, refp = _seed_matrix_cached(anchor_codes, R, cfg.seed_stride,
+                                     device)
 
     def run():
-        return _align_core(db, W, W2, cfg.top_diagonals, cfg.match_score,
+        return _align_core(db, seed, refp, cfg.top_diagonals, cfg.match_score,
                            cfg.mismatch_penalty, cfg.seed_stride)
 
     run()

@@ -17,9 +17,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import os
 import subprocess
 
 import numpy as np
@@ -154,16 +152,8 @@ def load_baseline(source: str):
     """Build another version of csrc/sw.cu and return its fused entry as
     ``fn(reads, windows) -> (5, B) int32``."""
     import torch
-    from anchored_fusion_tpu_torch.ops import sw_cuda
-    with open(source, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    so = os.path.join(sw_cuda.BUILD_DIR, f"baseline_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(sw_cuda.BUILD_DIR, exist_ok=True)
-        cmd = [sw_cuda._nvcc(), *sw_cuda.NVCC_FLAGS, "-o", so, source]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {proc.stderr}")
+    from anchored_fusion_tpu_torch.ops import cuda_build, sw_cuda
+    so = cuda_build.build(source, "baseline")
     with open(source) as fh:
         strips = "void* scratch" in fh.read()
     lib = ctypes.CDLL(so)

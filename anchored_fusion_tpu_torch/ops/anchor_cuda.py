@@ -1,0 +1,211 @@
+"""Wrapper of the anchored aligner's hand-written CUDA kernels
+(csrc/anchor.cu).
+
+- ``seed_block_max``: (2B, R) oriented reads and a SeedPatch -> the
+  per-128-diagonal-block maximum of the bfloat16-rounded match counts and
+  its first lane, (2B, nb) int32 each, without the (2B, D) count matrix.
+- ``extend_fold``: the Kadane extension of k candidates per oriented read
+  — the stable top-k of those block maxima, or given offsets — and the
+  strand fold: the nine per-read record fields.
+
+A tensor on the CPU goes to the plain version (ops/anchor.py); a CUDA
+tensor launches the kernel, which is built at first use with ``nvcc`` for
+sm_90a from the package's own source (ops/cuda_build.py) and bound with
+ctypes.  A failed build or launch raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import re
+from typing import Optional
+
+import torch
+
+from anchored_fusion_tpu_torch.ops import cuda_build
+from anchored_fusion_tpu_torch.ops.anchor import (
+    BLOCK, K_CHUNK, SeedPatch, extend_fold_plain, seed_block_max_plain)
+
+SOURCE = os.path.join(cuda_build.CSRC, "anchor.cu")
+MAX_K = 128             # candidates a read: 2k threads of one 256-wide CTA
+MAX_ROWS = 65535 * 128  # the seeding grid's y dimension
+
+_lib = None
+# Kernel launches in this process, one count per kernel; the plain versions
+# never count.
+seed_launches = 0       # seed_block_max_cuda
+fold_launches = 0       # extend_fold_cuda
+
+
+def build() -> str:
+    return cuda_build.build(SOURCE, "anchor")
+
+
+def ptxas_usage() -> list[dict]:
+    """Registers, static shared memory and spill bytes of both kernels, from
+    the ptxas report of the build."""
+    build()
+    with open(cuda_build.paths(SOURCE, "anchor")[1]) as fh:
+        text = fh.read()
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(seed_block_max_kernel|extend_fold_kernel)", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            cur["registers"], cur["smem_bytes"] = map(int, m.groups())
+            out.append(cur)
+            cur = None
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.seed_block_max_launch.restype = i32
+        lib.seed_block_max_launch.argtypes = [ptr, *[i32] * 4, ptr,
+                                              *[i32] * 3, ptr, ptr, ptr]
+        lib.extend_fold_launch.restype = i32
+        lib.extend_fold_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr, i64,
+                                           i64, ptr, ptr, ptr, *[i32] * 4,
+                                           ptr, ptr, ptr]
+        _lib = lib
+    return _lib
+
+
+def _require(name: str, t: torch.Tensor, dtype, dim: int,
+             device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dim}-D tensor")
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, "
+                         f"got {t.device}")
+
+
+def _run(fn: str, args, device: torch.device) -> None:
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: cudaError {err}")
+
+
+def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
+                        stride: int = 1):
+    """Launch the seeding kernel on the current stream; (bmax, lane)."""
+    global seed_launches
+    _require("flat", flat, torch.int8, 2, flat.device)
+    _require("seed.i8", seed.i8, torch.int8, 2, flat.device)
+    M, R = flat.shape
+    D, Rs = seed.diagonals, seed.positions
+    nb = -(-D // BLOCK)
+    if stride < 1 or Rs != -(-R // stride):
+        raise ValueError(f"patch matrix of {Rs} positions does not fit "
+                         f"reads of width {R} at stride {stride}")
+    if tuple(seed.i8.shape) != (nb * BLOCK, -(-4 * Rs // K_CHUNK) * K_CHUNK):
+        raise ValueError(f"seed.i8 shape {tuple(seed.i8.shape)} is not the "
+                         f"padded transpose of a ({4 * Rs}, {D}) matrix")
+    if M > MAX_ROWS or R * 256 >= 2 ** 31:
+        raise ValueError(f"{M} rows of width {R} exceed the kernel's grid")
+    bmax = torch.empty((M, nb), dtype=torch.int32, device=flat.device)
+    lane = torch.empty((M, nb), dtype=torch.int32, device=flat.device)
+    if M:
+        _run("seed_block_max_launch",
+             (flat.data_ptr(), M, R, stride, Rs, seed.i8.data_ptr(), D,
+              seed.i8.shape[1], nb, bmax.data_ptr(), lane.data_ptr()),
+             flat.device)
+        seed_launches += 1
+    return bmax, lane
+
+
+def extend_fold_cuda(flat: torch.Tensor, coord_off: torch.Tensor,
+                     refp: torch.Tensor, prepad: int, match: int,
+                     mismatch: int, k: int,
+                     offs: Optional[torch.Tensor] = None,
+                     bmax: Optional[torch.Tensor] = None,
+                     lane: Optional[torch.Tensor] = None,
+                     D: Optional[int] = None) -> dict:
+    """Launch the extension kernel on the current stream; the records of
+    ops/anchor.py::extend_fold_plain."""
+    global fold_launches
+    dev = flat.device
+    _require("flat", flat, torch.int8, 2, dev)
+    _require("coord_off", coord_off, torch.int32, 1, dev)
+    _require("refp", refp, torch.int8, 1, dev)
+    N, R = flat.shape
+    if N % 2 or coord_off.shape[0] != N:
+        raise ValueError("flat must hold 2B rows and coord_off 2B offsets")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k = {k} outside 1..{MAX_K}")
+    if R > refp.shape[0]:
+        raise ValueError(f"read width {R} exceeds the reference's "
+                         f"{refp.shape[0]} codes")
+    if offs is not None:
+        _require("offs", offs, torch.int32, 2, dev)
+        if tuple(offs.shape) != (N, k):
+            raise ValueError(f"offs shape {tuple(offs.shape)} != {(N, k)}")
+        nb, D, ptrs = 0, 0, (offs.data_ptr(), None, None)
+    else:
+        _require("bmax", bmax, torch.int32, 2, dev)
+        _require("lane", lane, torch.int32, 2, dev)
+        nb = bmax.shape[1]
+        if bmax.shape[0] != N or tuple(lane.shape) != tuple(bmax.shape) \
+                or D is None or nb != -(-D // BLOCK):
+            raise ValueError("bmax and lane must be (2B, ceil(D / 128))")
+        ptrs = (None, bmax.data_ptr(), lane.data_ptr())
+    B = N // 2
+    out = torch.empty((8, B), dtype=torch.int32, device=dev)
+    strand = torch.empty(B, dtype=torch.int8, device=dev)
+    if B:
+        _run("extend_fold_launch",
+             (flat.data_ptr(), coord_off.data_ptr(), B, R, k,
+              refp.data_ptr(), refp.shape[0], prepad, *ptrs, nb, D, match,
+              mismatch, out.data_ptr(), strand.data_ptr()), dev)
+        fold_launches += 1
+    return {"score": out[0], "strand": strand, "read_start": out[1],
+            "read_end": out[2], "matches": out[3], "length": out[4],
+            "second_score": out[5], "ref_start": out[6], "ref_end": out[7]}
+
+
+def seed_block_max(flat: torch.Tensor, seed: SeedPatch, stride: int = 1):
+    """(2B, R) int8 oriented reads -> (bmax, lane), (2B, nb) int32.  CUDA
+    tensors run the kernel, CPU tensors the plain version."""
+    if flat.is_cuda:
+        return seed_block_max_cuda(flat, seed, stride)
+    return seed_block_max_plain(flat, seed.f32, stride)
+
+
+def extend_fold(flat: torch.Tensor, coord_off: torch.Tensor,
+                refp: torch.Tensor, prepad: int, match: int, mismatch: int,
+                k: int, offs: Optional[torch.Tensor] = None,
+                bmax: Optional[torch.Tensor] = None,
+                lane: Optional[torch.Tensor] = None,
+                D: Optional[int] = None) -> dict:
+    """Per-read records (score, strand, read_start, read_end, matches,
+    length, second_score, ref_start, ref_end) of (2B, R) oriented reads:
+    block mode with ``bmax``/``lane``/``D``, offsets mode with ``offs``.
+    CUDA tensors run the kernel, CPU tensors the plain version."""
+    if flat.shape[1] > prepad:
+        # a clipped window must stay inside the PAD run
+        raise ValueError(f"read width {flat.shape[1]} exceeds the "
+                         f"reference's prepad {prepad}")
+    args = (flat, coord_off, refp, prepad, match, mismatch, k)
+    kw = dict(offs=offs, bmax=bmax, lane=lane, D=D)
+    if flat.is_cuda:
+        return extend_fold_cuda(*args, **kw)
+    return extend_fold_plain(*args, **kw)

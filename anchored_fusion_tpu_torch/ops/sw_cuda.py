@@ -21,20 +21,15 @@ wrapper allocates (csrc/sw.cu).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
-import subprocess
 
 import torch
 
+from anchored_fusion_tpu_torch.ops import cuda_build
 from anchored_fusion_tpu_torch.ops.sw import sw_align_fused_plain, sw_end
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "sw.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(cuda_build.CSRC, "sw.cu")
 MAX_W = 32768
 # Rows one warp holds in registers (32 lanes x 32 rows); taller pairs run in
 # strips of this height.
@@ -48,37 +43,14 @@ _lib = None
 launches = 0        # sw_align_fused_cuda
 end_launches = 0    # sw_end_cuda
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
 def _paths() -> tuple[str, str]:
-    with open(SOURCE, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"sw_{tag}.so")
-    return so, so[:-3] + ".ptxas.txt"
+    return cuda_build.paths(SOURCE, "sw")
 
 
 def build() -> str:
     """Compile csrc/sw.cu into a shared library (once per source hash); the
     compiler's per-kernel resource report is kept beside it."""
-    so, log = _paths()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    with open(log, "w") as fh:
-        fh.write(proc.stderr)
-    os.replace(tmp, so)
-    return so
+    return cuda_build.build(SOURCE, "sw")
 
 
 def ptxas_usage() -> list[dict]:

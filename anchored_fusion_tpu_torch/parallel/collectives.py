@@ -128,16 +128,16 @@ def map_rows_array(mesh, seqs: np.ndarray, fn: Callable, axes=(0,)):
     return gather_rows(np.ascontiguousarray(fn(seqs[sl]).T), counts, group).T
 
 
-def sharded_anchor_align(mesh, reads: torch.Tensor, seed_matrix, win_matrix,
+def sharded_anchor_align(mesh, reads: torch.Tensor, seed, refp,
                          top_k: int = 4, match: int = 1, mismatch: int = 4,
                          stride: int = 1) -> dict:
     """Anchor alignment with the read batch split over dp: each rank runs
-    ``_align_core`` on its rows against the replicated reference matrices,
-    and the per-read fields are all-gathered in read order."""
+    ``_align_core`` on its rows against the replicated patch matrix and
+    padded reference, and the per-read fields are all-gathered in read
+    order."""
     from anchored_fusion_tpu_torch.align.aligner import _align_core
     sl, counts, group = row_shard(mesh, reads.shape[0])
-    out = _align_core(reads[sl], seed_matrix, win_matrix, top_k, match,
-                      mismatch, stride)
+    out = _align_core(reads[sl], seed, refp, top_k, match, mismatch, stride)
     names = list(out)
     loc = torch.stack([out[n].to(torch.int64) for n in names], dim=1)
     g = gather_rows(loc.cpu().numpy(), counts, group)

@@ -36,9 +36,9 @@ from anchored_fusion_tpu_torch.index.kmer import (
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.align.aligner import (
     REF_PREPAD, RESULT_FIELDS, AlignmentResult, MultiHits, both_strands,
-    extend_diagonals, extend_diagonals_all, fold_strands, _flatten_multi,
-    to_numpy)
+    extend_diagonals_all, _flatten_multi, to_numpy)
 from anchored_fusion_tpu_torch.align.genome import _seed_diagonals
+from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
 from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 
@@ -119,9 +119,8 @@ def _shard_best(reads, read_offsets, shard, stride: int, max_hits: int,
     index, seq = shard
     flat, coord_off = both_strands(reads)
     offs = _seed_diagonals(flat, index, read_offsets, stride, max_hits, top_k)
-    cand = extend_diagonals(flat, seq, offs, match, mismatch,
-                            ref_prepad=REF_PREPAD)
-    return fold_strands(cand, reads.shape[0], coord_off)
+    return extend_fold(flat, coord_off, seq, REF_PREPAD, match, mismatch,
+                       top_k, offs=offs)
 
 
 def _reduce_best(per_shard: dict) -> dict:

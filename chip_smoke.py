@@ -19,13 +19,27 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              (ptxas), then per batch (random at KERNEL_SHAPES, tie-heavy,
              forward-only with random masks): kernel vs plain equality,
              kernel_ms, plain_ms, bound_ms (and the bound at the plain
-             recurrence's 12 operations a cell), share of bound, launches
+             recurrence's 12 operations a cell), share of bound, launches;
+             then a second line for the anchored aligner's kernels
+             (csrc/anchor.cu): seed_block_max and extend_fold (block mode,
+             on the seeding kernel's outputs) at ANCHOR_SHAPES — main_path's
+             32,768 reads x R 128 against a 6,798 bp anchor at k 4, a
+             tie-heavy batch, R 160, R 320 (bfloat16 rounding), stride 2,
+             a 200 bp reference (fewer blocks than k) — and extend_fold in
+             offsets mode on the flat engine's voted offsets: every output
+             equal, kernel_ms, plain_ms, bound_ms (int8 tensor-core
+             operations or bytes; int32 operations or bytes),
+             share_of_bound, and torch.matmul of the product alone in
+             float32 and bfloat16 for main_path's case
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
              engine and on the XL and sharded engines (forced); the same for
              call_gene_cells on the cells of tests/test_pipeline_synthetic.py
              (one of them in 160-wide rows): sc_rows_equal,
              sc_counters_equal
   main_path  per-stage times, reads/s, peak device memory, kernel launches
+             (the anchored kernels' too), a sample of the anchored
+             kernels' batches held equal to the plain versions, and both
+             kernels timed on this path's own first batches
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
   sc_path    call_gene_cells on the main_path pipeline: 96 cells of 50,000
@@ -119,7 +133,16 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              calls, with random masks); sw_align_fused is also held equal
              to the plain SW on every batch the in-process cli run,
              xl_path, sc_path, bench and headline handed it; the launches
-             in the mesh phase's ranks and the long-row times are added
+             in the mesh phase's ranks and the long-row times are added.
+             Then seed_block_max and extend_fold with their launches in
+             main_path, the in-process cli run, sc_path, engines, the mesh
+             ranks, bench, headline and xl_path, their time, plain time
+             and bound on main_path's first batch (extend_fold's offsets
+             mode beside it), the seeding's library yardstick (the product
+             alone through torch.matmul, float32; bfloat16 beside it), the
+             kernel phase's cases, and the largest difference from the
+             plain versions over those cases and the main_path and
+             sc_path samples
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -226,7 +249,8 @@ def phase_kernel():
     KERNEL_SHAPES, a tie-heavy batch, and the forward-only entry with random
     masks; then at LONG_SHAPES, rows walked in strips, random and tie-heavy
     pairs through the fused entry and random masks through the forward-only
-    one.  Returns the long-row records."""
+    one.  Then the anchored kernels (anchor_kernel_cases).  Returns the
+    long-row records and the anchored kernels' record."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -267,7 +291,399 @@ def phase_kernel():
     emit({"phase": "kernel", "name": "sw_align_fused, sw_end",
           "library": os.path.basename(so), "build_s": round(build_s, 3),
           "ptxas": sw_cuda.ptxas_usage(), "shapes": results})
-    return [r for r in results if r["kind"].startswith("long")]
+    return ([r for r in results if r["kind"].startswith("long")],
+            anchor_kernel_cases())
+
+
+# ------------------------------------------------------- anchored kernels
+
+# (name, reads, R, read length, reference bp, stride, k, kind) of the kernel
+# phase's anchored cases: main_path's chunk (PipelineConfig.read_batch
+# reads, 128-wide rows, its 6,798 bp anchor, k 4), a tie-heavy batch,
+# sc_path's 160-wide rows, 320-wide rows (counts past 256 round through
+# bfloat16), stride 2, and a 200 bp reference (2 blocks, fewer than k)
+ANCHOR_SHAPES = [("main_path", 32768, 128, 101, 6798, 1, 4, "random"),
+                 ("ties", 32768, 128, 101, 6798, 1, 4, "ties"),
+                 ("R160", 32768, 160, 150, 6798, 1, 4, "random"),
+                 ("R320", 8192, 320, 300, 6798, 1, 4, "random"),
+                 ("stride2", 32768, 128, 101, 6798, 2, 4, "random"),
+                 ("short_ref", 32768, 128, 101, 200, 1, 4, "random")]
+# the flat engine's offsets case: GenomeAligner.align's chunk of reads on a
+# genome of this size, at the rescue stage's top 8 voted diagonals
+ANCHOR_GENOME_BP = 4_000_000
+ANCHOR_GENOME_READS = 8192
+ANCHOR_GENOME_K = 8
+ANCHOR_SAMPLE = 2           # launches kept per kernel, mode and shape
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
+# int32 operations a read position of a candidate in the extension: the
+# score (two PAD compares, the base compare, a select), the prefix add, the
+# minimum-prefix compare and update, the segment subtract and compare, the
+# match-count add
+KADANE_OPS_PER_POS = 10
+
+
+def anchor_reads(rng, ref, n: int, R: int, read_len: int, kind: str):
+    """(n, R) int8 reads: a quarter copied from ``ref`` (half of them
+    reverse-complemented, some hanging off its ends as N, 1% substitutions),
+    the rest random background; for ``ties`` half come from the reference's
+    tandem repeat and every 4th is a copy of an earlier read."""
+    import numpy as np
+    L = len(ref)
+    m = min(read_len, L)
+    reads = np.full((n, R), 5, np.int8)
+    reads[:, :read_len] = rng.integers(0, 4, (n, read_len))
+    on = n // 2 if kind == "ties" else n // 4
+    lo, hi = (1000, 5000 - m) if kind == "ties" else (-m // 4, L - 3 * m // 4)
+    idx = rng.integers(lo, hi, on)[:, None] + np.arange(m)
+    seg = np.where((idx >= 0) & (idx < L), ref[np.clip(idx, 0, L - 1)], 4)
+    err = rng.random(seg.shape) < 0.01
+    seg[err] = (seg[err] + 1) % 4
+    rc = np.arange(on) % 2 == 1
+    seg[rc] = np.array(_COMP, np.int8)[seg[rc]][:, ::-1]
+    reads[:on] = 5
+    reads[:on, :m] = seg
+    if kind == "ties":
+        reads[3::4] = reads[:n // 4][:len(reads[3::4])]
+    reads[0] = 5
+    reads[1, :read_len] = 4
+    return reads
+
+
+def seed_bound_ms(M: int, R: int, seed) -> tuple:
+    """The least time for the seeding: 2 M Rs*4 D int8 operations at the
+    tensor-core peak, or its bytes (codes, the int8 patch matrix, two int32
+    outputs a block) at the HBM rate; and which of the two it is."""
+    D, Rs = seed.diagonals, seed.positions
+    nb = seed.i8.shape[0] // 128
+    ops = 2 * M * Rs * 4 * D
+    nbytes = M * R + seed.i8.numel() + 2 * M * nb * 4
+    return max(ops / INT8_OPS_PER_S, nbytes / 3.35e12) * 1e3, (
+        "operations" if ops / INT8_OPS_PER_S > nbytes / 3.35e12 else "bytes")
+
+
+def fold_bound_ms(N: int, R: int, k: int, Lp: int, nb: int) -> tuple:
+    """The least time for the extension: KADANE_OPS_PER_POS int32
+    operations a candidate position plus a top-k pass over the blocks, or
+    its bytes (reads, offsets, the windows' reference codes up to the whole
+    reference, block maxima and lanes, the records) at the HBM rate; and
+    which of the two it is."""
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    ops = N * k * R * KADANE_OPS_PER_POS + N * k * nb
+    nbytes = (N * R + N * 4 + min(N * k * R, Lp) + N // 2 * 33
+              + (2 * N * nb * 4 if nb else N * k * 4))
+    t_ops, t_bytes = ops / swb.INT32_OPS_PER_S, nbytes / swb.HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def _records_equal(got: dict, want: dict):
+    import torch
+    equal = {n: bool(torch.equal(got[n], want[n])) for n in want}
+    err = max(int((got[n].long() - want[n].long()).abs().max())
+              if want[n].numel() else 0 for n in want)
+    return equal, err
+
+
+def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
+              library: bool = True) -> dict:
+    """The seeding kernel against its plain version on one batch: equality
+    of both outputs, launches, kernel and plain times, the bound and the
+    product alone through torch.matmul in float32 (as the plain version)
+    and in bfloat16."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
+    from anchored_fusion_tpu_torch.ops.encode import one_hot
+
+    before = anchor_cuda.seed_launches
+    got = anchor_cuda.seed_block_max_cuda(flat, seed, stride)
+    torch.cuda.synchronize()
+    launched = anchor_cuda.seed_launches - before
+    want = anchor.seed_block_max_plain(flat, seed.f32, stride)
+    equal, err = _records_equal(dict(zip(("bmax", "lane"), got)),
+                                dict(zip(("bmax", "lane"), want)))
+    M, R = flat.shape
+    bound, by = seed_bound_ms(M, R, seed)
+    rec = {"kind": name, "rows": M, "R": R, "stride": stride,
+           "D": seed.diagonals, "blocks": got[0].shape[1], "equal": equal,
+           "max_abs_err": err,
+           "kernel_ms": swb.time_ms(
+               lambda: anchor_cuda.seed_block_max_cuda(flat, seed, stride),
+               20),
+           "plain_ms": swb.time_ms(
+               lambda: anchor.seed_block_max_plain(flat, seed.f32, stride),
+               plain_reps),
+           "bound_ms": bound, "bound_by": by, "launches": launched}
+    if library:
+        a32 = one_hot(flat[:, ::stride], torch.float32).reshape(M, -1)
+        a16, w16 = a32.to(torch.bfloat16), seed.f32.to(torch.bfloat16)
+        rec["matmul_f32_ms"] = swb.time_ms(lambda: a32 @ seed.f32, 5)
+        rec["matmul_bf16_ms"] = swb.time_ms(lambda: a16 @ w16, 5)
+        del a32, a16, w16
+    rec["share_of_bound"] = bound / rec["kernel_ms"]
+    return rec
+
+
+def fold_case(name: str, args: tuple, cand: dict,
+              plain_reps: int = 3) -> dict:
+    """The extension kernel against its plain version on one batch, ``args``
+    (flat, coord_off, refp, prepad, match, mismatch, k) and ``cand`` (block
+    mode: ``bmax``, ``lane``, ``D``; offsets mode: ``offs``): equality of
+    the nine record fields, launches, times and the bound."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
+
+    flat, refp, k = args[0], args[2], args[6]
+    before = anchor_cuda.fold_launches
+    got = anchor_cuda.extend_fold_cuda(*args, **cand)
+    torch.cuda.synchronize()
+    launched = anchor_cuda.fold_launches - before
+    want = anchor.extend_fold_plain(*args, **cand)
+    equal, err = _records_equal(got, want)
+    N, R = flat.shape
+    nb = cand["bmax"].shape[1] if cand.get("bmax") is not None else 0
+    bound, by = fold_bound_ms(N, R, k, refp.shape[0], nb)
+    kernel_ms = swb.time_ms(lambda: anchor_cuda.extend_fold_cuda(
+        *args, **cand), 20)
+    return {"kind": name, "rows": N, "R": R, "k": k,
+            "mode": "offsets" if nb == 0 else "block", "equal": equal,
+            "max_abs_err": err, "kernel_ms": kernel_ms,
+            "plain_ms": swb.time_ms(
+                lambda: anchor.extend_fold_plain(*args, **cand), plain_reps),
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / kernel_ms, "launches": launched}
+
+
+def genome_offsets_inputs(rng):
+    """A flat engine on a random ANCHOR_GENOME_BP genome on the card and one
+    chunk of reads from it: (oriented reads, coordinate offsets, voted
+    offsets (2B, ANCHOR_GENOME_K), the engine's prepadded codes, prepad)."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.align.aligner import both_strands
+    from anchored_fusion_tpu_torch.align.genome import (
+        GenomeAligner, _seed_diagonals)
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.io.fasta import Reference
+
+    codes = rng.integers(0, 4, ANCHOR_GENOME_BP).astype(np.int8)
+    genome = Reference(["chrA"], np.zeros(1, np.int64),
+                       np.asarray([len(codes)], np.int64), codes)
+    ga = GenomeAligner(genome, AlignConfig(), device="cuda")
+    reads = anchor_reads(rng, codes, ANCHOR_GENOME_READS, ROW, READ_LEN,
+                         "random")
+    flat, co = both_strands(torch.from_numpy(reads).cuda())
+    offs = _seed_diagonals(flat, ga.index, ga._offsets(ROW), ga.stride,
+                           ga.cfg.max_hits_per_kmer, ANCHOR_GENOME_K)
+    return flat, co, offs.contiguous(), ga.codes, ga.ref_prepad
+
+
+def anchor_kernel_cases() -> dict:
+    """Build csrc/anchor.cu and hold both kernels equal to their plain
+    versions at ANCHOR_SHAPES (the extension in block mode on the seeding
+    kernel's outputs) and in offsets mode on the flat engine's voted
+    offsets; every output must be equal.  Returns the kernel phase's
+    record of the anchored kernels."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.align.aligner import (
+        _seed_matrix_cached, both_strands)
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+
+    cfg = AlignConfig()
+    score = (cfg.match_score, cfg.mismatch_penalty)
+    t0 = time.time()
+    so = anchor_cuda.build()
+    build_s = time.time() - t0
+    rng = np.random.default_rng(4)
+    seeds, folds = [], []
+    for name, n, R, read_len, ref_bp, stride, k, kind in ANCHOR_SHAPES:
+        ref = rng.integers(0, 4, ref_bp).astype(np.int8)
+        if kind == "ties":
+            ref[1000:5000] = np.tile(rng.integers(0, 4, 40), 100)
+        reads = anchor_reads(rng, ref, n, R, read_len, kind)
+        flat, co = both_strands(torch.from_numpy(reads).cuda())
+        seed, refp = _seed_matrix_cached(ref, R, stride,
+                                            torch.device("cuda"))
+        seeds.append(seed_case(name, flat, seed, stride,
+                               library=name == "main_path"))
+        bmax, lane = anchor_cuda.seed_block_max_cuda(flat, seed, stride)
+        folds.append(fold_case(name, (flat, co, refp, R, *score, k),
+                               dict(bmax=bmax, lane=lane, D=seed.diagonals)))
+        del flat, co, bmax, lane
+    flat, co, offs, codes, prepad = genome_offsets_inputs(rng)
+    folds.append(fold_case("flat_offsets", (flat, co, codes, prepad, *score,
+                                            ANCHOR_GENOME_K),
+                           dict(offs=offs)))
+    del flat, co, offs, codes
+    torch.cuda.empty_cache()
+    rec = {"phase": "kernel", "name": "seed_block_max, extend_fold",
+           "library": os.path.basename(so), "build_s": round(build_s, 3),
+           "ptxas": anchor_cuda.ptxas_usage(), "seed_block_max": seeds,
+           "extend_fold": folds}
+    emit(rec)
+    bad = [f"{r['kind']} ({what})" for what, rs in (("seed", seeds),
+                                                     ("fold", folds))
+           for r in rs if not all(r["equal"].values()) or r["launches"] != 1]
+    if bad:
+        raise AssertionError(f"anchored kernels disagree: {bad}")
+    return rec
+
+
+@contextlib.contextmanager
+def capturing_anchor(captured: list):
+    """While the block runs, keep copies of the inputs of the first
+    ANCHOR_SAMPLE launches of each anchored kernel at each (mode, shape) in
+    ``captured`` (references and patch matrices are held, not copied: the
+    path does not change them), to hold them equal to the plain versions
+    afterwards."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+
+    seed_fn = anchor_cuda.seed_block_max_cuda
+    fold_fn = anchor_cuda.extend_fold_cuda
+    seen = {}
+
+    def keep(key) -> bool:
+        seen[key] = seen.get(key, 0) + 1
+        return seen[key] <= ANCHOR_SAMPLE
+
+    def seed_rec(flat, seed, stride=1):
+        if keep(("seed", tuple(flat.shape), seed.diagonals, stride)):
+            captured.append(("seed", (flat.clone(), seed, stride), {}))
+        return seed_fn(flat, seed, stride)
+
+    def fold_rec(flat, coord_off, refp, *args, **cand):
+        key = ("fold", tuple(flat.shape), cand.get("offs") is None)
+        if keep(key):
+            captured.append(("fold", (flat.clone(), coord_off.clone(), refp,
+                                      *args),
+                             {n: (v.clone() if hasattr(v, "clone") else v)
+                              for n, v in cand.items()}))
+        return fold_fn(flat, coord_off, refp, *args, **cand)
+
+    anchor_cuda.seed_block_max_cuda = seed_rec
+    anchor_cuda.extend_fold_cuda = fold_rec
+    try:
+        yield
+    finally:
+        anchor_cuda.seed_block_max_cuda = seed_fn
+        anchor_cuda.extend_fold_cuda = fold_fn
+
+
+def anchor_counts() -> dict:
+    """The anchored kernels' launch counts in this process."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+    return {"seed_block_max": anchor_cuda.seed_launches,
+            "extend_fold": anchor_cuda.fold_launches}
+
+
+def check_anchor_batches(captured) -> dict:
+    """Both anchored kernels against their plain versions on every captured
+    batch (launches made here are not counted on any path)."""
+    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
+    equal, err, shapes = True, 0, []
+    for kind, args, kw in captured:
+        if kind == "seed":
+            flat, seed, stride = args
+            got = dict(zip(("bmax", "lane"), anchor_cuda.seed_block_max_cuda(
+                flat, seed, stride)))
+            want = dict(zip(("bmax", "lane"), anchor.seed_block_max_plain(
+                flat, seed.f32, stride)))
+        else:
+            got = anchor_cuda.extend_fold_cuda(*args, **kw)
+            want = anchor.extend_fold_plain(*args, **kw)
+        eq, e = _records_equal(got, want)
+        equal = equal and all(eq.values())
+        err = max(err, e)
+        shapes.append([kind, *args[0].shape,
+                       "offsets" if kw.get("offs") is not None else "block"])
+    return {"batches": shapes, "equal": equal, "max_abs_err": err}
+
+
+def anchor_path_times(captured) -> dict:
+    """Both anchored kernels timed beside their plain versions on the first
+    captured batch of each: the seeding (and the product alone through
+    torch.matmul), the extension in block mode (the anchored stage) and in
+    offsets mode (the flat engine's rescue)."""
+    out = {}
+    for kind, args, kw in captured:
+        if kind == "seed" and "seed" not in out:
+            flat, seed, stride = args
+            out["seed"] = seed_case("main_path", flat, seed, stride)
+        elif kind == "fold":
+            mode = "offsets" if kw.get("offs") is not None else "block"
+            if mode not in out:
+                out[mode] = fold_case(f"main_path_{mode}", args, kw)
+    return out
+
+
+ANCHOR_REPLACES = {
+    "seed_block_max": ("anchored_fusion_tpu/ops/diagonal.py:73",
+                       ["anchored_fusion_tpu/align/aligner.py:353"]),
+    "extend_fold": ("anchored_fusion_tpu/align/aligner.py:272",
+                    ["anchored_fusion_tpu/ops/kadane.py:33",
+                     "anchored_fusion_tpu/align/aligner.py:300"]),
+}
+
+
+def anchor_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
+                          engines: dict, mesh: dict, bench: dict,
+                          headline: dict, xl: dict) -> list[dict]:
+    """The kernels line's entries of the two anchored kernels: launches in
+    each phase's driven run, times and bound on main_path's own first batch
+    (the extension's block mode, the anchored stage; its offsets mode, the
+    rescue, beside it), the kernel phase's cases, and the largest
+    difference from the plain version over those cases and the main_path
+    and sc_path samples.  The seeding's library yardstick is the product
+    alone through torch.matmul in float32 (bfloat16 beside it): no PyTorch
+    call computes product and block maximum together."""
+    out = []
+    for name, key, cases in (("seed_block_max", "seed",
+                              kernel["seed_block_max"]),
+                             ("extend_fold", "block", kernel["extend_fold"])):
+        t = main["anchor_times"][key]
+        err = max([c["max_abs_err"] for c in cases]
+                  + [main["anchor_check"]["max_abs_err"],
+                     sc["anchor_check"]["max_abs_err"]])
+        rep, also = ANCHOR_REPLACES[name]
+        entry = {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/anchor.cu",
+            "replaces": rep, "also_replaces": also,
+            "launches": main["anchor_launches"][name],
+            "cli_launches": cli["here_anchor_launches"][name],
+            "sc_launches": sc["anchor_launches"][name],
+            "engines_launches": engines["anchor_launches"][name],
+            "mesh_launches": mesh["pipeline"]["anchor_launches"][name],
+            "bench_launches": bench["anchor_launches"][name],
+            "headline_launches": headline["anchor_launches"][name],
+            "xl_launches": xl["anchor_launches"][name],
+            "max_abs_err": err, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t.get("matmul_f32_ms"),
+            "main_path_batch": [t["rows"], t["R"]],
+            "main_path_samples_equal": main["anchor_check"]["equal"],
+            "sc_samples_equal": sc["anchor_check"]["equal"],
+            "cases": [{k: c[k] for k in ("kind", "rows", "R", "kernel_ms",
+                                         "plain_ms", "bound_ms",
+                                         "share_of_bound")}
+                      for c in cases]}
+        if name == "seed_block_max":
+            entry["library_call"] = "torch.matmul, float32, product alone"
+            entry["library_bf16_ms"] = t["matmul_bf16_ms"]
+        else:
+            r = main["anchor_times"].get("offsets")
+            entry["offsets_mode"] = (
+                {k: r[k] for k in ("rows", "R", "k", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by")} if r else None)
+        out.append(entry)
+    bad = [e["name"] for e in out if e["max_abs_err"]
+           or not e["main_path_samples_equal"] or not e["sc_samples_equal"]]
+    if bad:
+        raise AssertionError(f"anchored kernels disagree: {bad}")
+    return out
 
 
 def _timeless(counters: dict) -> dict:
@@ -527,10 +943,11 @@ def main_path_inputs(genome_bp: int, n_pairs: int, seed: int = 5):
 
 @contextlib.contextmanager
 def capturing_sw(captured: list):
-    """Set the SW kernels' launch counts to 0, then, while the block runs,
-    keep a copy of the inputs of every fused launch in ``captured``, to
-    check and time the kernel on exactly those tensors afterwards."""
-    from anchored_fusion_tpu_torch.ops import sw_cuda
+    """Set the SW kernels' and the anchored kernels' launch counts to 0,
+    then, while the block runs, keep a copy of the inputs of every fused SW
+    launch in ``captured``, to check and time the kernel on exactly those
+    tensors afterwards."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, sw_cuda
 
     kernel_fn = sw_cuda.sw_align_fused_cuda
 
@@ -540,6 +957,7 @@ def capturing_sw(captured: list):
 
     sw_cuda.sw_align_fused_cuda = recording
     sw_cuda.launches = sw_cuda.end_launches = 0
+    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
     try:
         yield
     finally:
@@ -573,11 +991,11 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
     index_s = time.time() - t0
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
 
-    captured = []
+    captured, anchor_captured = [], []
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    with capturing_sw(captured):
+    with capturing_sw(captured), capturing_anchor(anchor_captured):
         t0 = time.time()
         res = pipe.call_gene(anchor.name, anchor_codes, batch,
                              out_prefix=os.path.join(tmpdir, "main"))
@@ -586,6 +1004,8 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         call_s = time.time() - t0
         launches = sw_cuda.launches
         end_launches = sw_cuda.end_launches
+        anchor_launches = anchor_counts()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
 
     c = res.counters
     expected = f"{anchor.name}--{partner.name}"
@@ -607,9 +1027,14 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         "expected": expected, "expected_breakpoint": break5,
         "called_breakpoint": top["anchor_breakpoint"] if top else None,
         "sw_launches": launches, "sw_end_launches": end_launches,
-        "peak_device_bytes": (torch.cuda.max_memory_allocated()
-                              if device == "cuda" else None),
+        "anchor_launches": anchor_launches, "peak_device_bytes": peak,
     }
+    if device == "cuda":
+        # a sample of each anchored kernel's batches against the plain
+        # versions, and both kernels timed on this path's own first batches
+        rec["anchor_check"] = check_anchor_batches(anchor_captured)
+        rec["anchor_times"] = anchor_path_times(anchor_captured)
+    del anchor_captured
     emit(rec)
     if top is None or top["anchor_breakpoint"] != break5:
         raise AssertionError(f"engineered fusion not called at {break5}")
@@ -617,6 +1042,10 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         raise AssertionError(f"decoy called: {fusions}")
     if device == "cuda" and launches == 0:
         raise AssertionError("main path launched no SW kernel")
+    if device == "cuda" and not all(anchor_launches.values()):
+        raise AssertionError(f"main path anchored launches {anchor_launches}")
+    if device == "cuda" and not rec["anchor_check"]["equal"]:
+        raise AssertionError("anchored kernels disagree on main-path batches")
     rerun = lambda: pipe.call_gene(anchor.name, anchor_codes, batch,  # noqa: E731
                                    out_prefix=os.path.join(tmpdir, "again"))
     world = {"pipe": pipe, "genome": genome, "sg": sg, "anchor": anchor,
@@ -759,11 +1188,11 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
     codes, break5 = world["anchor_codes"], world["break5"]
     out = os.path.join(tmpdir, "sc")
     os.makedirs(out, exist_ok=True)
-    failures, captured = [], []
+    failures, captured, anchor_captured = [], [], []
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    with capturing_sw(captured):
+    with capturing_sw(captured), capturing_anchor(anchor_captured):
         t0 = time.time()
         res = pipe.call_gene_cells(
             anchor.name, codes, cells,
@@ -772,7 +1201,10 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
             torch.cuda.synchronize()
         call_s = time.time() - t0
         launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+        anchor_launches = anchor_counts()
     peak = torch.cuda.max_memory_allocated() if cuda else None
+    anchor_check = (check_anchor_batches(anchor_captured) if cuda else None)
+    del anchor_captured
 
     expected = f"{anchor.name}--{world['partner'].name}"
     called = [c for c, r in res.items()
@@ -820,6 +1252,7 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
            "peak_device_bytes": peak,
            "sw_launches": launches, "sw_end_launches": end_launches,
            "sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
+           "anchor_launches": anchor_launches, "anchor_check": anchor_check,
            "failures": [{k: f[k] for k in ("gene", "error")}
                         for f in failures],
            "called_cells": called, "fusions": fusions,
@@ -842,6 +1275,10 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
         problems.append(f"serial call_gene differs: {serial}")
     if cuda and (not launches or launches != len(captured)):
         problems.append(f"{launches} SW launches, {len(captured)} captured")
+    if cuda and (not all(anchor_launches.values())
+                 or not anchor_check["equal"]):
+        problems.append(f"anchored launches {anchor_launches}, equal to "
+                        f"the plain versions {anchor_check['equal']}")
     if problems:
         raise AssertionError("sc_path: " + "; ".join(problems))
     return rec, captured, launches
@@ -1349,6 +1786,7 @@ def phase_cli(tmpdir: str):
         here = run_cli_here(inp, os.path.join(d, "here_cuda"), run_dir,
                             config2, "cuda")
         here_launches = sw_cuda.launches
+        here_anchor = anchor_counts()
     # the config-2 run (the mesh phase's reference)
     inp["config2"] = (config2, os.path.join(d, "load"), run_dir)
 
@@ -1401,6 +1839,7 @@ def phase_cli(tmpdir: str):
            # (held against the plain SW on the kernels line), and on cpu
            "here_rc": here["rc"], "here_wall_s": here["wall_s"],
            "here_sw_launches": here_launches,
+           "here_anchor_launches": here_anchor,
            "here_sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
            "here_rows_equal": here_same, "here_max_score_diff": here_diff,
            "filter_off_messages": off,
@@ -1632,10 +2071,13 @@ def phase_engines(genome) -> dict:
     from anchored_fusion_tpu_torch.parallel.sharded_genome import (
         ShardedGenomeAligner)
 
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+
     cfg = AlignConfig(gapped_refine=False, index_stride=2)
     reads, _, _ = sample_reads(np.random.default_rng(3), genome.seq,
                                CHECK_READS)
     engines, build_s, align_s, out = {}, {}, {}, {}
+    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
     for name, make in (
             ("flat", lambda: GenomeAligner(genome, cfg, device="cuda",
                                            device_build=True)),
@@ -1650,6 +2092,7 @@ def phase_engines(genome) -> dict:
         out[name] = engines[name].align(reads)
         align_s[name] = time.time() - t0
         del engines[name]
+    anchor_launches = anchor_counts()
     torch.cuda.empty_cache()
     a = out["flat"]
     diff = lambda o, fields: {f: int((getattr(a, f) != getattr(o, f)).sum())  # noqa: E731
@@ -1686,6 +2129,7 @@ def phase_engines(genome) -> dict:
                                  for k, v in align_s.items()},
            "xl_vs_flat_differing": xl_diff,
            "sharded_vs_flat_differing": sh_diff,
+           "anchor_launches": anchor_launches,
            "index_check": {"genome_bp": INDEX_CHECK_BP, "k": 13, "kb": kb,
                            "valid_slots": nv, "slots": len(codes) - 12,
                            "host_build_s": host_s, "device_build_s": dev_s,
@@ -1961,11 +2405,12 @@ def phase_xl_path(tmpdir: str) -> dict:
                        "sw_launches": sw_cuda.launches - before})
         launches = sw_cuda.launches
         end_launches = sw_cuda.end_launches
+        anchor_launches = anchor_counts()
         del pipe, ga, res
         gc.collect()
         torch.cuda.empty_cache()
     rec.update(xl=xl, sharded=sh, sw_launches=launches,
-               sw_end_launches=end_launches)
+               sw_end_launches=end_launches, anchor_launches=anchor_launches)
     emit(rec)
     problems = []
     if xl["engine"] != "xl" or xl["class"] != "GenomeAlignerXL":
@@ -2108,7 +2553,7 @@ def mesh_worker(art: dict) -> dict:
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
     from anchored_fusion_tpu_torch.config import (
         AlignConfig, MeshConfig, PipelineConfig)
-    from anchored_fusion_tpu_torch.ops import sw_cuda
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, sw_cuda
     from anchored_fusion_tpu_torch.ops.encode import encode_ascii
     from anchored_fusion_tpu_torch.parallel import distributed
     from anchored_fusion_tpu_torch.parallel.mesh import make_mesh
@@ -2144,6 +2589,7 @@ def mesh_worker(art: dict) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     sw_cuda.launches = sw_cuda.end_launches = 0
+    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
     t0 = time.time()
     res = pipe.call_gene(anchor.name, codes, batch, out_prefix=os.path.join(
         art["tmp"], f"mesh_rank{rank}"))
@@ -2155,7 +2601,8 @@ def mesh_worker(art: dict) -> dict:
         "anchor_align_s": c["time.anchor_align_s"],
         "rank_reads": c["reads"] // MESH_RANKS,
         "sw_launches": sw_cuda.launches, "sw_end_launches":
-        sw_cuda.end_launches, "mesh": list(pipe.mesh.mesh.shape),
+        sw_cuda.end_launches, "anchor_launches": anchor_counts(),
+        "mesh": list(pipe.mesh.mesh.shape),
         "peak_device_bytes": (torch.cuda.max_memory_allocated() if cuda
                               else None)}
     del pipe, index, batch
@@ -2325,6 +2772,10 @@ def phase_mesh(tmpdir: str, art: dict, refs: dict, cli_inp: dict,
                                               for x in problems),
                         "sw_launches": sum(r["pipeline"]["sw_launches"]
                                            for r in ranks),
+                        "anchor_launches": {
+                            n: sum(r["pipeline"]["anchor_launches"][n]
+                                   for r in ranks)
+                            for n in r0["pipeline"]["anchor_launches"]},
                         **pipe},
            "engines": engines, "train": train,
            "bulk_cli": {"rc": [b[0] for b in bulk],
@@ -2555,6 +3006,7 @@ def phase_bench(tmpdir: str, device: str = "cuda"):
         rec["negative_scale"] = run_harness("negative_scale", BENCH_NEG,
                                             device)
         launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+        rec["anchor_launches"] = anchor_counts()
 
     t0 = time.time()
     asset = os.path.join(d, "positive_samples.txt")
@@ -2645,6 +3097,7 @@ def phase_headline(sample: dict, device: str = "cuda"):
     with capturing_sw(captured):
         r = rec["headline"] = run_harness("headline", argv, device)
         launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
+        rec["anchor_launches"] = anchor_counts()
     line = r["json"]
     rec["host_share"] = round(
         1 - line["value"] / line["relay"]["compute_reads_per_s"], 4)
@@ -2741,7 +3194,7 @@ def main() -> int:
         emit({"phase": "device", "nvidia_smi": smi, "name": kind,
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        long_rows = run("kernel", phase_kernel)
+        long_rows, anchor_kernel = run("kernel", phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
             run("parity", phase_parity, tmp)
             rec, captured, rerun, world = run("main_path", phase_main_path,
@@ -2756,7 +3209,7 @@ def main() -> int:
             del world
             gc.collect()
             torch.cuda.empty_cache()
-            _, refs = run("engines", phase_engines, genome)
+            engines, refs = run("engines", phase_engines, genome)
             del genome
             run("filter", phase_filter)
             run("bilstm", phase_bilstm)
@@ -2788,6 +3241,8 @@ def main() -> int:
                                               cli_captured, xl_check,
                                               sc_check, mesh, bench_check,
                                               head_check, long_rows)
+        kernels += anchor_kernel_entries(anchor_kernel, rec, cli, sc,
+                                         engines, mesh, bench, head, xl)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})
