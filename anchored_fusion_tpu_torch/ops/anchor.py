@@ -33,7 +33,7 @@ from anchored_fusion_tpu_torch.ops.diagonal import (
 from anchored_fusion_tpu_torch.ops.encode import PAD
 
 BLOCK = 128     # diagonals per block of the two-level top-k
-K_CHUNK = 128   # one-hot rows per step of the seeding kernel: 32 positions
+K_CHUNK = 128   # the int8 patch matrix's k padding: 32 positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +43,8 @@ class SeedPatch:
     ``f32`` is ops/diagonal.py's (Rs*4, D) float32 matrix; ``i8`` is the
     same 0/1 matrix as int8, transposed to (nb*128, Kp) with zero rows past
     D and zero columns past Rs*4 (Kp a multiple of K_CHUNK): the seeding
-    kernel's operand, diagonal-major so a block's rows are contiguous.
+    kernel's operand.  Row y's first 4 bytes are the one-hot of reference
+    position y - (R-1); the kernel builds its Toeplitz B tiles from them.
     """
 
     f32: torch.Tensor

@@ -28,8 +28,8 @@ from anchored_fusion_tpu_torch.ops.anchor import (
     BLOCK, K_CHUNK, SeedPatch, extend_fold_plain, seed_block_max_plain)
 
 SOURCE = os.path.join(cuda_build.CSRC, "anchor.cu")
-MAX_K = 128             # candidates a read: 2k threads of one 256-wide CTA
-MAX_ROWS = 65535 * 128  # the seeding grid's y dimension
+MAX_K = 128             # candidates a row: the extension's offset table
+MAX_ROWS = 65535 * 128  # rows a seeding launch takes
 
 _lib = None
 # Kernel launches in this process, one count per kernel; the plain versions
@@ -43,7 +43,8 @@ def build() -> str:
 
 
 def ptxas_usage() -> list[dict]:
-    """Registers, static shared memory and spill bytes of both kernels, from
+    """Registers, static shared memory and spill bytes of every kernel
+    instantiation (the seeding kernel's by stream stride and variant), from
     the ptxas report of the build."""
     build()
     with open(cuda_build.paths(SOURCE, "anchor")[1]) as fh:
@@ -51,9 +52,14 @@ def ptxas_usage() -> list[dict]:
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
-                      r"(seed_block_max_kernel|extend_fold_kernel)", line)
+                      r"(seed_block_max_kernel|extend_fold_kernel)"
+                      r"(?:ILi(\d+)ELb([01])ELi(\d+)E)?", line)
         if m:
             cur = {"kernel": m.group(1)}
+            if m.group(2):
+                cur["stream_stride"] = int(m.group(2))
+                cur["chunked"] = m.group(3) == "1"
+                cur["stage_steps"] = int(m.group(4))
             continue
         if cur is None:
             continue
@@ -61,27 +67,52 @@ def ptxas_usage() -> list[dict]:
                       line)
         if m:
             cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m:
-            cur["registers"], cur["smem_bytes"] = map(int, m.groups())
+            cur["registers"] = int(m.group(1))
+            cur["smem_bytes"] = int(m.group(2) or 0)
             out.append(cur)
             cur = None
     return out
 
 
+def seed_plan(M: int, R: int, stride: int, D: int) -> dict:
+    """How the seeding kernel lays out a launch of this shape on the current
+    card: stream stride and dilation, the read's k-steps and those a stage
+    (a bucket, or a chunk), the K-chunked variant, the item split (G groups
+    of TPG diagonal tiles a 128-row tile), the persistent grid and the
+    dynamic shared memory a CTA."""
+    lib = _load()
+    out = (ctypes.c_int * 9)()
+    err = lib.seed_block_max_plan(M, R, stride, -(-R // stride), D, out)
+    if err != 0:
+        raise RuntimeError(f"seed_block_max_plan failed: cudaError {err}")
+    return dict(zip(("stream_stride", "dilation", "k_steps", "stage_steps",
+                     "chunked", "G", "TPG", "grid", "smem_bytes"),
+                    list(out)))
+
+
+def bind(lib):
+    """Set the argument types of a built anchor library's C entries (the
+    plan entry only where the source has one)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.seed_block_max_launch.restype = i32
+    lib.seed_block_max_launch.argtypes = [ptr, *[i32] * 4, ptr,
+                                          *[i32] * 3, ptr, ptr, ptr]
+    lib.extend_fold_launch.restype = i32
+    lib.extend_fold_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr, i64,
+                                       i64, ptr, ptr, ptr, *[i32] * 4,
+                                       ptr, ptr, ptr]
+    if hasattr(lib, "seed_block_max_plan"):
+        lib.seed_block_max_plan.restype = i32
+        lib.seed_block_max_plan.argtypes = [*[i32] * 5, ptr]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.seed_block_max_launch.restype = i32
-        lib.seed_block_max_launch.argtypes = [ptr, *[i32] * 4, ptr,
-                                              *[i32] * 3, ptr, ptr, ptr]
-        lib.extend_fold_launch.restype = i32
-        lib.extend_fold_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr, i64,
-                                           i64, ptr, ptr, ptr, *[i32] * 4,
-                                           ptr, ptr, ptr]
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 

@@ -21,16 +21,23 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              kernel_ms, plain_ms, bound_ms (and the bound at the plain
              recurrence's 12 operations a cell), share of bound, launches;
              then a second line for the anchored aligner's kernels
-             (csrc/anchor.cu): seed_block_max and extend_fold (block mode,
-             on the seeding kernel's outputs) at ANCHOR_SHAPES — main_path's
-             32,768 reads x R 128 against a 6,798 bp anchor at k 4, a
-             tie-heavy batch, R 160, R 320 (bfloat16 rounding), stride 2,
-             a 200 bp reference (fewer blocks than k) — and extend_fold in
-             offsets mode on the flat engine's voted offsets: every output
-             equal, kernel_ms, plain_ms, bound_ms (int8 tensor-core
+             (csrc/anchor.cu): ptxas of every instantiation, the SASS
+             matrix-multiply instructions of each kernel (warpgroup MMAs
+             only in the seeding), then seed_block_max and extend_fold
+             (block mode, on the seeding kernel's outputs) at
+             bench/anchor_bench.py's ANCHOR_SHAPES — main_path's 32,768
+             reads x R 128 against a 6,798 bp anchor at k 4, a tie-heavy
+             batch, R 160, R 320 (bfloat16 rounding), stride 2, a 200 bp
+             reference (fewer blocks than k) — extend_fold in offsets mode
+             on the flat engine's voted offsets, and its EDGE_SHAPES (2,
+             130 and 65,538 rows, 1,024-wide reads, a one-block reference,
+             stride 3): every output equal (max_abs_err 0), one launch a
+             case, kernel_ms, plain_ms, bound_ms (int8 tensor-core
              operations or bytes; int32 operations or bytes),
-             share_of_bound, and torch.matmul of the product alone in
-             float32 and bfloat16 for main_path's case
+             share_of_bound, the seeding's launch plan, and for main_path's
+             case the product alone: torch.matmul in float32 and bfloat16
+             at D columns, bfloat16 at the padded width nb*128, and
+             torch._int_mm in int8 at the padded width
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
              engine and on the XL and sharded engines (forced); the same for
              call_gene_cells on the cells of tests/test_pipeline_synthetic.py
@@ -297,83 +304,12 @@ def phase_kernel():
 
 # ------------------------------------------------------- anchored kernels
 
-# (name, reads, R, read length, reference bp, stride, k, kind) of the kernel
-# phase's anchored cases: main_path's chunk (PipelineConfig.read_batch
-# reads, 128-wide rows, its 6,798 bp anchor, k 4), a tie-heavy batch,
-# sc_path's 160-wide rows, 320-wide rows (counts past 256 round through
-# bfloat16), stride 2, and a 200 bp reference (2 blocks, fewer than k)
-ANCHOR_SHAPES = [("main_path", 32768, 128, 101, 6798, 1, 4, "random"),
-                 ("ties", 32768, 128, 101, 6798, 1, 4, "ties"),
-                 ("R160", 32768, 160, 150, 6798, 1, 4, "random"),
-                 ("R320", 8192, 320, 300, 6798, 1, 4, "random"),
-                 ("stride2", 32768, 128, 101, 6798, 2, 4, "random"),
-                 ("short_ref", 32768, 128, 101, 200, 1, 4, "random")]
-# the flat engine's offsets case: GenomeAligner.align's chunk of reads on a
-# genome of this size, at the rescue stage's top 8 voted diagonals
-ANCHOR_GENOME_BP = 4_000_000
-ANCHOR_GENOME_READS = 8192
-ANCHOR_GENOME_K = 8
+# The anchored cases, inputs and bounds live in bench/anchor_bench.py (its
+# --baseline comparison runs the same batches): ANCHOR_SHAPES (main_path's
+# chunk, ties, R 160, R 320, stride 2, a 200 bp reference), then the flat
+# engine's offsets case, then EDGE_SHAPES (2, 130 and 65,538 rows,
+# 1,024-wide reads, a single-block reference, stride 3).
 ANCHOR_SAMPLE = 2           # launches kept per kernel, mode and shape
-INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
-# int32 operations a read position of a candidate in the extension: the
-# score (two PAD compares, the base compare, a select), the prefix add, the
-# minimum-prefix compare and update, the segment subtract and compare, the
-# match-count add
-KADANE_OPS_PER_POS = 10
-
-
-def anchor_reads(rng, ref, n: int, R: int, read_len: int, kind: str):
-    """(n, R) int8 reads: a quarter copied from ``ref`` (half of them
-    reverse-complemented, some hanging off its ends as N, 1% substitutions),
-    the rest random background; for ``ties`` half come from the reference's
-    tandem repeat and every 4th is a copy of an earlier read."""
-    import numpy as np
-    L = len(ref)
-    m = min(read_len, L)
-    reads = np.full((n, R), 5, np.int8)
-    reads[:, :read_len] = rng.integers(0, 4, (n, read_len))
-    on = n // 2 if kind == "ties" else n // 4
-    lo, hi = (1000, 5000 - m) if kind == "ties" else (-m // 4, L - 3 * m // 4)
-    idx = rng.integers(lo, hi, on)[:, None] + np.arange(m)
-    seg = np.where((idx >= 0) & (idx < L), ref[np.clip(idx, 0, L - 1)], 4)
-    err = rng.random(seg.shape) < 0.01
-    seg[err] = (seg[err] + 1) % 4
-    rc = np.arange(on) % 2 == 1
-    seg[rc] = np.array(_COMP, np.int8)[seg[rc]][:, ::-1]
-    reads[:on] = 5
-    reads[:on, :m] = seg
-    if kind == "ties":
-        reads[3::4] = reads[:n // 4][:len(reads[3::4])]
-    reads[0] = 5
-    reads[1, :read_len] = 4
-    return reads
-
-
-def seed_bound_ms(M: int, R: int, seed) -> tuple:
-    """The least time for the seeding: 2 M Rs*4 D int8 operations at the
-    tensor-core peak, or its bytes (codes, the int8 patch matrix, two int32
-    outputs a block) at the HBM rate; and which of the two it is."""
-    D, Rs = seed.diagonals, seed.positions
-    nb = seed.i8.shape[0] // 128
-    ops = 2 * M * Rs * 4 * D
-    nbytes = M * R + seed.i8.numel() + 2 * M * nb * 4
-    return max(ops / INT8_OPS_PER_S, nbytes / 3.35e12) * 1e3, (
-        "operations" if ops / INT8_OPS_PER_S > nbytes / 3.35e12 else "bytes")
-
-
-def fold_bound_ms(N: int, R: int, k: int, Lp: int, nb: int) -> tuple:
-    """The least time for the extension: KADANE_OPS_PER_POS int32
-    operations a candidate position plus a top-k pass over the blocks, or
-    its bytes (reads, offsets, the windows' reference codes up to the whole
-    reference, block maxima and lanes, the records) at the HBM rate; and
-    which of the two it is."""
-    from anchored_fusion_tpu_torch.bench import sw_bench as swb
-    ops = N * k * R * KADANE_OPS_PER_POS + N * k * nb
-    nbytes = (N * R + N * 4 + min(N * k * R, Lp) + N // 2 * 33
-              + (2 * N * nb * 4 if nb else N * k * 4))
-    t_ops, t_bytes = ops / swb.INT32_OPS_PER_S, nbytes / swb.HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
 
 
 def _records_equal(got: dict, want: dict):
@@ -384,16 +320,43 @@ def _records_equal(got: dict, want: dict):
     return equal, err
 
 
+def seed_library_ms(flat, seed, stride: int) -> dict:
+    """The product alone, without the block maximum: through torch.matmul
+    in float32 at D columns (as the plain version), in bfloat16 at D
+    columns and at the padded width nb*128 (a 16-byte row pitch), and as
+    torch._int_mm in int8 at the padded width (the kernel's own
+    arithmetic)."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops.encode import one_hot
+    M = flat.shape[0]
+    K = 4 * seed.positions
+    a32 = one_hot(flat[:, ::stride], torch.float32).reshape(M, -1)
+    a16, w16 = a32.to(torch.bfloat16), seed.f32.to(torch.bfloat16)
+    wpad = seed.i8[:, :K]                     # (nb*128, K), K-major
+    wpad16 = wpad.t().contiguous().to(torch.bfloat16)
+    a8 = a32.to(torch.int8)
+    rec = {"matmul_f32_ms": swb.time_ms(lambda: a32 @ seed.f32, 5),
+           "matmul_bf16_ms": swb.time_ms(lambda: a16 @ w16, 5),
+           "matmul_bf16_padded_ms": swb.time_ms(lambda: a16 @ wpad16, 5),
+           "int_mm_padded_ms": swb.time_ms(
+               lambda: torch._int_mm(a8, wpad.t()), 5),
+           "padded_width": wpad.shape[0]}
+    exact = torch._int_mm(a8, wpad.t())[:, :seed.diagonals]
+    rec["int_mm_exact"] = bool(torch.equal(exact.float(), a32 @ seed.f32))
+    del a32, a16, w16, wpad16, a8, exact
+    return rec
+
+
 def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
               library: bool = True) -> dict:
     """The seeding kernel against its plain version on one batch: equality
-    of both outputs, launches, kernel and plain times, the bound and the
-    product alone through torch.matmul in float32 (as the plain version)
-    and in bfloat16."""
+    of both outputs, launches, kernel and plain times, the bound, the
+    launch plan, and (``library``) the product alone (seed_library_ms)."""
     import torch
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
     from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
-    from anchored_fusion_tpu_torch.ops.encode import one_hot
 
     before = anchor_cuda.seed_launches
     got = anchor_cuda.seed_block_max_cuda(flat, seed, stride)
@@ -403,10 +366,11 @@ def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
     equal, err = _records_equal(dict(zip(("bmax", "lane"), got)),
                                 dict(zip(("bmax", "lane"), want)))
     M, R = flat.shape
-    bound, by = seed_bound_ms(M, R, seed)
+    bound, by = ab.seed_bound_ms(M, R, seed)
     rec = {"kind": name, "rows": M, "R": R, "stride": stride,
            "D": seed.diagonals, "blocks": got[0].shape[1], "equal": equal,
            "max_abs_err": err,
+           "plan": anchor_cuda.seed_plan(M, R, stride, seed.diagonals),
            "kernel_ms": swb.time_ms(
                lambda: anchor_cuda.seed_block_max_cuda(flat, seed, stride),
                20),
@@ -414,13 +378,13 @@ def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
                lambda: anchor.seed_block_max_plain(flat, seed.f32, stride),
                plain_reps),
            "bound_ms": bound, "bound_by": by, "launches": launched}
+    rec["device_ms"] = ab.device_ms(
+        lambda: anchor_cuda.seed_block_max_cuda(flat, seed, stride),
+        "seed_block_max_kernel")
     if library:
-        a32 = one_hot(flat[:, ::stride], torch.float32).reshape(M, -1)
-        a16, w16 = a32.to(torch.bfloat16), seed.f32.to(torch.bfloat16)
-        rec["matmul_f32_ms"] = swb.time_ms(lambda: a32 @ seed.f32, 5)
-        rec["matmul_bf16_ms"] = swb.time_ms(lambda: a16 @ w16, 5)
-        del a32, a16, w16
+        rec.update(seed_library_ms(flat, seed, stride))
     rec["share_of_bound"] = bound / rec["kernel_ms"]
+    rec["device_share_of_bound"] = bound / rec["device_ms"]
     return rec
 
 
@@ -431,6 +395,7 @@ def fold_case(name: str, args: tuple, cand: dict,
     mode: ``bmax``, ``lane``, ``D``; offsets mode: ``offs``): equality of
     the nine record fields, launches, times and the bound."""
     import torch
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
     from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
 
@@ -443,52 +408,55 @@ def fold_case(name: str, args: tuple, cand: dict,
     equal, err = _records_equal(got, want)
     N, R = flat.shape
     nb = cand["bmax"].shape[1] if cand.get("bmax") is not None else 0
-    bound, by = fold_bound_ms(N, R, k, refp.shape[0], nb)
+    bound, by = ab.fold_bound_ms(N, R, k, refp.shape[0], nb)
     kernel_ms = swb.time_ms(lambda: anchor_cuda.extend_fold_cuda(
         *args, **cand), 20)
+    device_ms = ab.device_ms(lambda: anchor_cuda.extend_fold_cuda(
+        *args, **cand), "extend_fold_kernel")
     return {"kind": name, "rows": N, "R": R, "k": k,
             "mode": "offsets" if nb == 0 else "block", "equal": equal,
-            "max_abs_err": err, "kernel_ms": kernel_ms,
+            "max_abs_err": err, "kernel_ms": kernel_ms, "device_ms": device_ms,
             "plain_ms": swb.time_ms(
                 lambda: anchor.extend_fold_plain(*args, **cand), plain_reps),
             "bound_ms": bound, "bound_by": by,
-            "share_of_bound": bound / kernel_ms, "launches": launched}
+            "share_of_bound": bound / kernel_ms,
+            "device_share_of_bound": bound / device_ms, "launches": launched}
 
 
-def genome_offsets_inputs(rng):
-    """A flat engine on a random ANCHOR_GENOME_BP genome on the card and one
-    chunk of reads from it: (oriented reads, coordinate offsets, voted
-    offsets (2B, ANCHOR_GENOME_K), the engine's prepadded codes, prepad)."""
-    import numpy as np
-    import torch
-    from anchored_fusion_tpu_torch.align.aligner import both_strands
-    from anchored_fusion_tpu_torch.align.genome import (
-        GenomeAligner, _seed_diagonals)
-    from anchored_fusion_tpu_torch.config import AlignConfig
-    from anchored_fusion_tpu_torch.io.fasta import Reference
-
-    codes = rng.integers(0, 4, ANCHOR_GENOME_BP).astype(np.int8)
-    genome = Reference(["chrA"], np.zeros(1, np.int64),
-                       np.asarray([len(codes)], np.int64), codes)
-    ga = GenomeAligner(genome, AlignConfig(), device="cuda")
-    reads = anchor_reads(rng, codes, ANCHOR_GENOME_READS, ROW, READ_LEN,
-                         "random")
-    flat, co = both_strands(torch.from_numpy(reads).cuda())
-    offs = _seed_diagonals(flat, ga.index, ga._offsets(ROW), ga.stride,
-                           ga.cfg.max_hits_per_kmer, ANCHOR_GENOME_K)
-    return flat, co, offs.contiguous(), ga.codes, ga.ref_prepad
+def sass_instructions(so: str) -> dict:
+    """Per kernel of a built library, the count of each matrix-multiply
+    and bulk-copy instruction in its SASS (cuobjdump -sass): warpgroup MMAs
+    (*GMMA), warp MMAs (*MMA), TMA loads (UTMALDG)."""
+    import re
+    import subprocess
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*?(seed_block_max_kernel\w*|"
+                      r"extend_fold_kernel\w*)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"\b([A-Z]*GMMA|[A-Z]*MMA|UTMALDG)(\.\S+)?", line)
+        if cur is not None and m and "/*" in line:
+            name = m.group(1) + (m.group(2) or "")
+            cur[name] = cur.get(name, 0) + 1
+    return out
 
 
 def anchor_kernel_cases() -> dict:
     """Build csrc/anchor.cu and hold both kernels equal to their plain
-    versions at ANCHOR_SHAPES (the extension in block mode on the seeding
-    kernel's outputs) and in offsets mode on the flat engine's voted
-    offsets; every output must be equal.  Returns the kernel phase's
-    record of the anchored kernels."""
+    versions at anchor_bench's ANCHOR_SHAPES (the extension in block mode
+    on the seeding kernel's outputs), in offsets mode on the flat engine's
+    voted offsets, and at its EDGE_SHAPES; every output must be equal and
+    every case one launch.  Returns the kernel phase's record of the
+    anchored kernels."""
     import numpy as np
     import torch
-    from anchored_fusion_tpu_torch.align.aligner import (
-        _seed_matrix_cached, both_strands)
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
     from anchored_fusion_tpu_torch.config import AlignConfig
     from anchored_fusion_tpu_torch.ops import anchor_cuda
 
@@ -497,36 +465,43 @@ def anchor_kernel_cases() -> dict:
     t0 = time.time()
     so = anchor_cuda.build()
     build_s = time.time() - t0
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(ab.SEED)
     seeds, folds = [], []
-    for name, n, R, read_len, ref_bp, stride, k, kind in ANCHOR_SHAPES:
-        ref = rng.integers(0, 4, ref_bp).astype(np.int8)
-        if kind == "ties":
-            ref[1000:5000] = np.tile(rng.integers(0, 4, 40), 100)
-        reads = anchor_reads(rng, ref, n, R, read_len, kind)
-        flat, co = both_strands(torch.from_numpy(reads).cuda())
-        seed, refp = _seed_matrix_cached(ref, R, stride,
-                                            torch.device("cuda"))
-        seeds.append(seed_case(name, flat, seed, stride,
-                               library=name == "main_path"))
+
+    def shape_case(shape):
+        flat, co, seed, refp, stride, k = ab.shape_inputs(rng, shape)
+        R = flat.shape[1]
+        seeds.append(seed_case(shape[0], flat, seed, stride,
+                               library=shape[0] == "main_path"))
         bmax, lane = anchor_cuda.seed_block_max_cuda(flat, seed, stride)
-        folds.append(fold_case(name, (flat, co, refp, R, *score, k),
+        folds.append(fold_case(shape[0], (flat, co, refp, R, *score, k),
                                dict(bmax=bmax, lane=lane, D=seed.diagonals)))
-        del flat, co, bmax, lane
-    flat, co, offs, codes, prepad = genome_offsets_inputs(rng)
+
+    for shape in ab.ANCHOR_SHAPES:
+        shape_case(shape)
+    flat, co, offs, codes, prepad = ab.genome_offsets_inputs(rng)
     folds.append(fold_case("flat_offsets", (flat, co, codes, prepad, *score,
-                                            ANCHOR_GENOME_K),
+                                            ab.GENOME_K),
                            dict(offs=offs)))
     del flat, co, offs, codes
+    for shape in ab.EDGE_SHAPES:
+        shape_case(shape)
     torch.cuda.empty_cache()
     rec = {"phase": "kernel", "name": "seed_block_max, extend_fold",
            "library": os.path.basename(so), "build_s": round(build_s, 3),
-           "ptxas": anchor_cuda.ptxas_usage(), "seed_block_max": seeds,
-           "extend_fold": folds}
+           "ptxas": anchor_cuda.ptxas_usage(), "sass": sass_instructions(so),
+           "seed_block_max": seeds, "extend_fold": folds}
     emit(rec)
     bad = [f"{r['kind']} ({what})" for what, rs in (("seed", seeds),
                                                      ("fold", folds))
-           for r in rs if not all(r["equal"].values()) or r["launches"] != 1]
+           for r in rs if not all(r["equal"].values()) or r["launches"] != 1
+           or r["max_abs_err"]]
+    sass = rec["sass"]
+    gmma = {k: v for k, v in sass.items() if k.startswith("seed")}
+    if not gmma or any(not any("GMMA" in n for n in v) or
+                       any("MMA" in n and "GMMA" not in n for n in v)
+                       for v in gmma.values()):
+        bad.append(f"seeding SASS is not warpgroup MMA only: {gmma}")
     if bad:
         raise AssertionError(f"anchored kernels disagree: {bad}")
     return rec
@@ -637,8 +612,9 @@ def anchor_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
     rescue, beside it), the kernel phase's cases, and the largest
     difference from the plain version over those cases and the main_path
     and sc_path samples.  The seeding's library yardstick is the product
-    alone through torch.matmul in float32 (bfloat16 beside it): no PyTorch
-    call computes product and block maximum together."""
+    alone as torch._int_mm in int8 at the padded width (float32 and
+    bfloat16 through torch.matmul beside it): no PyTorch call computes
+    product and block maximum together."""
     out = []
     for name, key, cases in (("seed_block_max", "seed",
                               kernel["seed_block_max"]),
@@ -659,25 +635,30 @@ def anchor_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
             "bench_launches": bench["anchor_launches"][name],
             "headline_launches": headline["anchor_launches"][name],
             "xl_launches": xl["anchor_launches"][name],
-            "max_abs_err": err, "ms": t["kernel_ms"],
+            "max_abs_err": err, "ms": t["device_ms"],
+            "event_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
-            "library_ms": t.get("matmul_f32_ms"),
+            "library_ms": t.get("int_mm_padded_ms"),
             "main_path_batch": [t["rows"], t["R"]],
             "main_path_samples_equal": main["anchor_check"]["equal"],
             "sc_samples_equal": sc["anchor_check"]["equal"],
             "cases": [{k: c[k] for k in ("kind", "rows", "R", "kernel_ms",
-                                         "plain_ms", "bound_ms",
-                                         "share_of_bound")}
+                                         "device_ms", "plain_ms", "bound_ms",
+                                         "device_share_of_bound")}
                       for c in cases]}
         if name == "seed_block_max":
-            entry["library_call"] = "torch.matmul, float32, product alone"
+            entry["library_call"] = ("torch._int_mm, int8, product alone at "
+                                     "the padded width nb*128")
+            entry["library_f32_ms"] = t["matmul_f32_ms"]
             entry["library_bf16_ms"] = t["matmul_bf16_ms"]
+            entry["library_bf16_padded_ms"] = t["matmul_bf16_padded_ms"]
         else:
             r = main["anchor_times"].get("offsets")
             entry["offsets_mode"] = (
-                {k: r[k] for k in ("rows", "R", "k", "kernel_ms", "plain_ms",
-                                   "bound_ms", "bound_by")} if r else None)
+                {k: r[k] for k in ("rows", "R", "k", "kernel_ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                if r else None)
         out.append(entry)
     bad = [e["name"] for e in out if e["max_abs_err"]
            or not e["main_path_samples_equal"] or not e["sc_samples_equal"]]
