@@ -19,39 +19,27 @@ import torch
 from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.io.fasta import Reference
 from anchored_fusion_tpu_torch.index.kmer import (
-    KmerIndex, bucket_bits_for, build_shard_index_device,
-    pack_read_kmers_strided, lookup_hits_table, vote_diagonals,
-    read_kmer_offsets)
+    KmerIndex, bucket_bits_for, build_shard_index_device, read_kmer_offsets)
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.align.aligner import (
     REF_PREPAD, MultiHits, both_strands, concat_records,
     extend_diagonals_all, _flatten_multi, records_to_result, to_numpy)
 from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
+from anchored_fusion_tpu_torch.ops.seed_vote_cuda import seed_vote
 from anchored_fusion_tpu_torch.utils.device import resolve_device
-
-# Offset given to empty vote slots: far outside any genome, so its window is
-# all PAD.
-EMPTY_DIAG = -(2 ** 30) // 2
 
 
 def _seed_diagonals(flat, index: KmerIndex, offsets, stride: int,
                     max_hits: int, top_k: int):
-    """Shared seeding: strided k-mer keys -> table hit lookup -> diagonal vote.
+    """Shared seeding: strided k-mer keys -> table hit lookup -> diagonal
+    vote, as one launch of the seeding kernel (ops/seed_vote_cuda.py) in
+    diag mode.
 
     Returns (2B, top_k) int32 candidate ref offsets of read position 0
-    (EMPTY_DIAG for empty vote slots).
+    (ops/seed_vote.py EMPTY_DIAG for empty vote slots).
     """
-    N = flat.shape[0]
-    keys, kvalid = pack_read_kmers_strided(flat, index.k, stride)  # (2B, Q)
-    pos, hvalid = lookup_hits_table(index.table, index.keys_sorted,
-                                    index.pos_sorted, keys, kvalid, max_hits,
-                                    index.k, index.kb)
-    # candidate diagonal = hit position - k-mer offset in read
-    diags = pos - offsets[None, :, None]                     # (2B, Q, H)
-    C = diags.shape[1] * diags.shape[2]
-    diag, votes = vote_diagonals(diags.reshape(N, C), hvalid.reshape(N, C),
-                                 top_k)
-    return torch.where(votes > 0, diag, EMPTY_DIAG)
+    return seed_vote(flat, index.table, index.keys_sorted, index.pos_sorted,
+                     offsets, index.k, index.kb, stride, max_hits, top_k)
 
 
 class GenomeAligner:

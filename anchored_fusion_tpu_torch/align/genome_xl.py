@@ -11,8 +11,10 @@ every device index inside int32:
     whose tile edges carry a halo of the neighbouring tiles: a window is
     ``tiles[row, col+halo : col+halo+R]`` with in-tile (int32) indices, and
     the halo (>= read width) makes windows that cross a tile edge whole.
-    Diagonals are voted as (row, col) pairs (kmer.vote_diagonals2); the
-    int64 fold ``row * C + col`` happens on the host.
+    Diagonals are voted as (row, col) pairs (the seeding kernel's tile
+    mode, ops/seed_vote_cuda.py) and extended in the extension kernel's
+    tile mode (ops/anchor_cuda.py); the int64 fold ``row * C + col``
+    happens on the host.
 
 The index build runs one device build per genome slice (kmer.
 build_shard_index_device) and merges them on the device: the global bucket
@@ -41,10 +43,11 @@ import torch
 from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.io.fasta import Reference
 from anchored_fusion_tpu_torch.index.kmer import (
-    build_shard_index_device, merge_sorted_pieces, pack_read_kmers_strided,
-    lookup_hits_table, vote_diagonals2, read_kmer_offsets)
+    build_shard_index_device, merge_sorted_pieces, read_kmer_offsets)
+from anchored_fusion_tpu_torch.ops.anchor import TILE_FIELDS, tile_segments
+from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
 from anchored_fusion_tpu_torch.ops.encode import PAD
-from anchored_fusion_tpu_torch.ops import kadane
+from anchored_fusion_tpu_torch.ops.seed_vote_cuda import seed_vote
 from anchored_fusion_tpu_torch.align.aligner import (
     AlignmentResult, MultiHits, both_strands)
 from anchored_fusion_tpu_torch.align.genome import GenomeAligner
@@ -124,104 +127,38 @@ def build_index_xl(codes: np.ndarray, k: int, stride: int,
     return table, merged
 
 
-def _pick(a: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
-    return torch.gather(a, 1, j[:, None])[:, 0]
-
-
 def _xl_seed_core(reads, table, pos_div, read_offsets, k: int, kb: int,
                   stride_idx: int, stride_q: int, max_hits: int, top_k: int,
                   T: int, C: int):
     """Hit gather and vote: (B, R) reads -> (rows (2B, top_k), cols (2B,
-    top_k)) int32 candidates; empty slots take the all-PAD row T."""
-    B = reads.shape[0]
+    top_k)) int32 candidates; empty slots take the all-PAD row T.  One
+    launch of the seeding kernel (ops/seed_vote_cuda.py) in tile mode."""
     flat, _ = both_strands(reads)
-    rk, kvalid = pack_read_kmers_strided(flat, k, stride_q)
-    hit, hvalid = lookup_hits_table(table, table[:1], pos_div, rk, kvalid,
-                                    max_hits, k, kb)
-    rowdiv = C // stride_idx
-    row = hit // rowdiv                                    # (2B, Q, H)
-    col = (hit % rowdiv) * stride_idx - read_offsets[None, :, None]
-    Cc = col.shape[1] * col.shape[2]
-    vrow, vcol, votes = vote_diagonals2(row.reshape(2 * B, Cc),
-                                        col.reshape(2 * B, Cc),
-                                        hvalid.reshape(2 * B, Cc), top_k)
-    rows_c = torch.where(votes > 0, torch.clamp(vrow, 0, T - 1), T)
-    cols_c = torch.where(votes > 0, vcol, 0)
-    return rows_c, cols_c
+    return seed_vote(flat, table, table[:1], pos_div, read_offsets, k, kb,
+                     stride_q, max_hits, top_k,
+                     tile=(C // stride_idx, stride_idx, T))
 
 
-def _xl_windows_and_segments(reads, tiles, rows_c, cols_c, halo: int,
-                             match: int, mismatch: int):
-    """Gather each candidate's R-wide window from the tiles and take its
-    best Kadane segment: (segments dict (2B, top_k), oriented reads,
-    coordinate offsets)."""
-    R = reads.shape[1]
-    flat, coord_off = both_strands(reads)
-    start = torch.clamp(cols_c + halo, 0, tiles.shape[1] - R)
-    cols = start[..., None] + torch.arange(R, dtype=torch.int32,
-                                           device=reads.device)
-    win = tiles[rows_c.long()[..., None], cols.long()]      # (2B, k, R)
-    valid = (win != PAD) & (flat != PAD)[:, None, :]
-    sc, ism = kadane.segment_scores(flat[:, None, :].expand(win.shape), win,
-                                    valid, match=match, mismatch=mismatch)
-    return kadane.best_segment(sc, ism), flat, coord_off
-
-
-XL_FIELDS = ("score", "strand", "read_start", "read_end", "matches",
-             "length", "second_score", "row", "col_start", "col_end")
+XL_FIELDS = TILE_FIELDS
 
 
 def _xl_extend_core(reads, tiles, rows_c, cols_c, top_k: int, match: int,
                     mismatch: int, halo: int) -> torch.Tensor:
     """Extend and fold the strands: (10, B) int32 rows of XL_FIELDS (the
-    host folds ``ref = row * C + col`` in int64)."""
-    B = reads.shape[0]
-    seg, flat, coord_off = _xl_windows_and_segments(
-        reads, tiles, rows_c, cols_c, halo, match, mismatch)
-    order = torch.argsort(-seg["score"], dim=1, stable=True)
-    b1 = order[:, 0]
-    b2 = order[:, min(1, top_k - 1)]
-    cand = {
-        "score": _pick(seg["score"], b1),
-        "second": (_pick(seg["score"], b2) if top_k > 1 else
-                   torch.zeros(2 * B, dtype=torch.int32, device=reads.device)),
-        "rs": _pick(seg["start"], b1),
-        "re": _pick(seg["end"], b1),
-        "mt": _pick(seg["matches"], b1),
-        "ln": _pick(seg["length"], b1),
-        "row": _pick(rows_c, b1),
-        "col": _pick(cols_c, b1),
-    }
-    # fold strands (ops/anchor.py::fold_strands with (row, col) for 'off')
-    fwd = {n: v[:B] for n, v in cand.items()}
-    rev = {n: v[B:] for n, v in cand.items()}
-    use_rev = rev["score"] > fwd["score"]
-    pick = lambda n: torch.where(use_rev, rev[n], fwd[n])  # noqa: E731
-    rs_raw = pick("rs")
-    re_raw = pick("re")
-    co = torch.where(use_rev, coord_off[B:], coord_off[:B])
-    out = [
-        pick("score"),
-        use_rev,
-        rs_raw - co,
-        re_raw - co,
-        pick("mt"),
-        pick("ln"),
-        torch.maximum(torch.where(use_rev, rev["second"], fwd["second"]),
-                      torch.where(use_rev, fwd["score"], rev["score"])),
-        pick("row"),
-        pick("col") + rs_raw,                              # col of ref_start
-        pick("col") + re_raw,                              # col of ref_end
-    ]
-    return torch.stack([v.to(torch.int32) for v in out])
+    host folds ``ref = row * C + col`` in int64), through the extension
+    kernel's tile mode (ops/anchor_cuda.py::extend_fold)."""
+    flat, coord_off = both_strands(reads)
+    rec = extend_fold(flat, coord_off, tiles, halo, match, mismatch, top_k,
+                      offs=cols_c, rows=rows_c)
+    return torch.stack([rec[f] for f in XL_FIELDS])
 
 
 def _xl_multi_extend_core(reads, tiles, rows_c, cols_c, match: int,
                           mismatch: int, halo: int) -> torch.Tensor:
     """All-hits extension: (7, 2B, top_k) int32 candidates (score, start,
     end, matches, length, row, col)."""
-    seg, _, _ = _xl_windows_and_segments(reads, tiles, rows_c, cols_c, halo,
-                                         match, mismatch)
+    flat, _ = both_strands(reads)
+    seg = tile_segments(flat, tiles, rows_c, cols_c, halo, match, mismatch)
     return torch.stack([seg["score"], seg["start"], seg["end"],
                         seg["matches"], seg["length"], rows_c,
                         cols_c]).to(torch.int32)

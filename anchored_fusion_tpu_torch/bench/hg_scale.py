@@ -141,7 +141,8 @@ def overlaps_any(intervals: np.ndarray, starts: np.ndarray,
 
 def profile_xl_stages(ga, reads, batch: int, top_k: int, max_hits: int):
     """Seed and extension wall seconds of the XL engine's two device
-    programs over ``reads`` in ``batch``-read chunks, with a device sync
+    programs (on the card the seeding kernel and the extension kernel's
+    tile mode) over ``reads`` in ``batch``-read chunks, with a device sync
     after each.  The residual of the whole align() time over their sum is
     the refine post-pass, the host fold and the copies."""
     import torch

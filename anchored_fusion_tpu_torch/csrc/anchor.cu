@@ -12,7 +12,11 @@
 //                   the stable top-k of the block maxima (or given offsets),
 //                   the reference window of every candidate, the Kadane
 //                   maximal segment, the best and runner-up over k and the
-//                   fold of the two strands.
+//                   fold of the two strands.  Its tile mode replaces align/
+//                   genome_xl.py:221 _xl_extend_core (with :200
+//                   _xl_windows_and_segments): the same over (row, col)
+//                   candidates whose windows are rows of the XL engine's
+//                   tiled genome, a row's base 64-bit.
 //
 // seed_block_max is bounded by int8 operations (2 * rows * Rs*4 * D), far
 // above its bytes.  It keeps the (rows, D) count matrix out of device
@@ -601,7 +605,9 @@ struct FoldSmem {
 // Candidates: offs (2B, k) int32, or (offs == nullptr) the stable top-k
 // of bmax/lane (2B, nb) int32 over D diagonals.  out (8, B) int32: score,
 // read_start, read_end, matches, length, second_score, ref_start, ref_end;
-// strand (B,) int8.  A lane a candidate: L lanes (a power of two, at most
+// strand (B,) int8.  Tile mode (rows != nullptr): refp holds Lp / W tile
+// rows of W codes, candidate j is (rows[., j], offs[., j]) with `prepad`
+// the tiles' halo, and out is (10, B) (extend_fold_tiles_launch).  A lane a candidate: L lanes (a power of two, at most
 // 16, at or above the row's distinct candidates) a row, the read's two
 // rows side by side, 16 / L reads a warp;
 // grid ceil(B / (kFoldWarps * 16 / L)).
@@ -613,7 +619,8 @@ extend_fold_kernel(const int8_t* __restrict__ flat,
                    const int* __restrict__ bmax,
                    const int* __restrict__ lanes, int nb, int D, int match,
                    int mismatch, int* __restrict__ out,
-                   int8_t* __restrict__ strand) {
+                   int8_t* __restrict__ strand,
+                   const int* __restrict__ rows, long long W) {
   __shared__ FoldSmem sm[kFoldWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // a row's kk distinct candidates (block mode: ranks past the blocks
@@ -695,9 +702,14 @@ extend_fold_kernel(const int8_t* __restrict__ flat,
   int last = INT_MIN;  // the score of rank kk - 1, on its lane
   for (int j = gl; j - gl < kk; j += L) {
     const bool act = j < kk;
-    const int off = offw[act ? j : kk - 1];
+    const int jj = act ? j : kk - 1;
+    const int off = offw[jj];
+    // the window's row: the reference, or (tile mode) its tile row
+    const long long lim = rows != nullptr ? W : Lp;
     long long st = static_cast<long long>(off) + prepad;
-    st = st < 0 ? 0 : (st > Lp - R ? Lp - R : st);
+    st = st < 0 ? 0 : (st > lim - R ? lim - R : st);
+    if (rows != nullptr)
+      st += static_cast<long long>(__ldg(rows + row * k + jj)) * W;
     // windows whose staged words all lie inside refp load unguarded
     const bool clear = __all_sync(
         0xffffffffu, st + 128LL * npiece + 8 <= Lp);
@@ -790,6 +802,24 @@ extend_fold_kernel(const int8_t* __restrict__ flat,
   const bool use_rev = other.s.score > mine.s.score;
   const Best& w = use_rev ? other : mine;
   const int co = coord_off[use_rev ? B + b : b];
+  if (rows != nullptr) {
+    // tile mode: genome_xl.py XL_FIELDS, the row of the best candidate
+    // and the columns of its ends
+    const size_t rb = use_rev ? static_cast<size_t>(B) + b : b;
+    int* o = out + b;
+    const size_t s = B;
+    o[0] = w.s.score;
+    o[s] = use_rev ? 1 : 0;
+    o[2 * s] = w.s.start - co;
+    o[3 * s] = w.s.end - co;
+    o[4 * s] = w.s.matches;
+    o[5 * s] = max(w.s.end - w.s.start + 1, 0);
+    o[6 * s] = max(w.second, use_rev ? mine.s.score : other.s.score);
+    o[7 * s] = __ldg(rows + rb * k + w.rank);
+    o[8 * s] = w.off + w.s.start;
+    o[9 * s] = w.off + w.s.end;
+    return;
+  }
   out[b] = w.s.score;
   out[static_cast<size_t>(B) + b] = w.s.start - co;
   out[static_cast<size_t>(2) * B + b] = w.s.end - co;
@@ -936,6 +966,30 @@ extern "C" int extend_fold_launch(const void* flat, const void* coord_off,
       R, k, L, static_cast<const int8_t*>(refp), Lp, prepad,
       static_cast<const int*>(offs), static_cast<const int*>(bmax),
       static_cast<const int*>(lane), nb, D, match, mismatch,
-      static_cast<int*>(out), static_cast<int8_t*>(strand));
+      static_cast<int*>(out), static_cast<int8_t*>(strand), nullptr, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tile mode (the XL engine): candidates (rows, cols) (2B, k) int32 of the
+// tiled genome tiles (T+1 rows of W codes, total = (T+1) * W), the window
+// of (row, col) tiles[row, clamp(col + halo, 0, W - R) : ... + R]; out
+// (10, B) int32 rows of genome_xl.py XL_FIELDS.
+extern "C" int extend_fold_tiles_launch(const void* flat,
+                                        const void* coord_off, int B, int R,
+                                        int k, const void* tiles,
+                                        long long total, long long W,
+                                        long long halo, const void* rows,
+                                        const void* cols, int match,
+                                        int mismatch, void* out,
+                                        void* stream) {
+  int L = 1;
+  while (L < k && L < 16) L <<= 1;
+  const int reads = kFoldWarps * (16 / L);
+  extend_fold_kernel<<<(B + reads - 1) / reads, 32 * kFoldWarps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(flat), static_cast<const int*>(coord_off), B,
+      R, k, L, static_cast<const int8_t*>(tiles), total, halo,
+      static_cast<const int*>(cols), nullptr, nullptr, 0, 0, match, mismatch,
+      static_cast<int*>(out), nullptr, static_cast<const int*>(rows), W);
   return static_cast<int>(cudaGetLastError());
 }

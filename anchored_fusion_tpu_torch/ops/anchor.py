@@ -10,13 +10,15 @@ aligner.
   stable top-k of the block maxima (block mode) or given (offsets mode) —
   a window of the PAD-extended reference, the Kadane maximal segment
   (ops/kadane.py), the best and the runner-up over k, and the fold of the
-  two strands into one record per read.
+  two strands into one record per read.  In tile mode (the XL engine) the
+  candidates are (row, col) pairs of the tiled genome and the windows are
+  rows of the tiles.
 
 These are the JAX package's ``_block_topk_diagonals``,
-``extend_diagonals`` and ``fold_strands`` (align/aligner.py) split where
-the kernels split them; tie order is kept: top-k keeps the lower index, the
-best is the first maximum, the reverse strand wins only when strictly
-better.
+``extend_diagonals`` and ``fold_strands`` (align/aligner.py), and
+``_xl_extend_core`` (align/genome_xl.py), split where the kernels split
+them; tie order is kept: top-k keeps the lower index, the best is the first
+maximum, the reverse strand wins only when strictly better.
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from anchored_fusion_tpu_torch.ops.encode import PAD
 
 BLOCK = 128     # diagonals per block of the two-level top-k
 K_CHUNK = 128   # the int8 patch matrix's k padding: 32 positions
+# The tile mode's record rows: genome_xl.py's XL_FIELDS; the host folds
+# ``ref = row * C + col`` in int64.
+TILE_FIELDS = ("score", "strand", "read_start", "read_end", "matches",
+               "length", "second_score", "row", "col_start", "col_end")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,16 +130,37 @@ def extend_segments(flat: torch.Tensor, refp: torch.Tensor,
     R = flat.shape[1]
     start = torch.clamp(offs.long() + prepad, 0, refp.shape[0] - R)
     win = refp[start[..., None] + torch.arange(R, device=refp.device)]
+    return window_segments(flat, win, match, mismatch)
+
+
+def window_segments(flat: torch.Tensor, win: torch.Tensor, match: int,
+                    mismatch: int) -> dict:
+    """The Kadane maximal segment of (N, R) reads against their (N, k, R)
+    windows; a position counts where neither side is PAD."""
     valid = (win != PAD) & (flat != PAD)[:, None, :]
     sc, ism = kadane.segment_scores(flat[:, None, :].expand(win.shape), win,
                                     valid, match=match, mismatch=mismatch)
     return kadane.best_segment(sc, ism)
 
 
-def best_of_k(seg: dict, offs: torch.Tensor) -> dict:
+def tile_segments(flat: torch.Tensor, tiles: torch.Tensor,
+                  rows: torch.Tensor, cols: torch.Tensor, halo: int,
+                  match: int, mismatch: int) -> dict:
+    """extend_segments over a tiled genome: the window of candidate (row,
+    col) is ``tiles[row, clamp(col + halo, 0, W - R) : ... + R]``."""
+    R = flat.shape[1]
+    start = torch.clamp(cols + halo, 0, tiles.shape[1] - R)
+    idx = start[..., None] + torch.arange(R, dtype=torch.int32,
+                                          device=flat.device)
+    win = tiles[rows.long()[..., None], idx.long()]          # (N, k, R)
+    return window_segments(flat, win, match, mismatch)
+
+
+def best_of_k(seg: dict, offs: torch.Tensor,
+              rows: Optional[torch.Tensor] = None) -> dict:
     """(N, k) segments -> (N,) best candidate (the first maximum) and the
     runner-up's score (the second of a stable descending order; 0 for
-    k = 1)."""
+    k = 1); with ``rows`` (tile mode) also the best candidate's row."""
     N, k = offs.shape
     order = torch.argsort(-seg["score"], dim=1, stable=True)
     b1 = order[:, :1]
@@ -148,6 +175,7 @@ def best_of_k(seg: dict, offs: torch.Tensor) -> dict:
         "mt": take(seg["matches"], b1),
         "ln": take(seg["length"], b1),
         "off": take(offs, b1),
+        **({"row": take(rows, b1)} if rows is not None else {}),
     }
 
 
@@ -178,6 +206,7 @@ def fold_strands(cand: dict, B: int, coord_off: torch.Tensor) -> dict:
             torch.where(use_rev, fwd["score"], rev["score"])),
         "ref_start": off_best + rs_raw,
         "ref_end": off_best + re_raw,
+        **({"row": pick("row")} if "row" in cand else {}),
     }
 
 
@@ -187,15 +216,24 @@ def extend_fold_plain(flat: torch.Tensor, coord_off: torch.Tensor,
                       offs: Optional[torch.Tensor] = None,
                       bmax: Optional[torch.Tensor] = None,
                       lane: Optional[torch.Tensor] = None,
-                      D: Optional[int] = None) -> dict:
+                      D: Optional[int] = None,
+                      rows: Optional[torch.Tensor] = None) -> dict:
     """Per-read records (dict of (B,)) of (2B, R) oriented reads.
 
     Block mode (``bmax``, ``lane``, ``D``): the candidates are the stable
     top-k diagonals, offset ``idx - (R - 1)``.  Offsets mode (``offs``,
     (2B, k) int32).  Windows come from ``refp`` with ``prepad`` PAD codes
-    before reference position 0.
+    before reference position 0.  Tile mode (``rows`` and ``offs``, (2B, k)
+    int32 rows and columns of the (T+1, W) tiles ``refp``, ``prepad`` the
+    tiles' halo): the TILE_FIELDS records, int32.
     """
     N, R = flat.shape
+    if rows is not None:
+        seg = tile_segments(flat, refp, rows, offs, prepad, match, mismatch)
+        rec = fold_strands(best_of_k(seg, offs, rows), N // 2, coord_off)
+        rec["col_start"] = rec.pop("ref_start")
+        rec["col_end"] = rec.pop("ref_end")
+        return {f: rec[f].to(torch.int32) for f in TILE_FIELDS}
     if offs is None:
         offs = block_topk_plain(bmax, lane, k, D) - (R - 1)
     seg = extend_segments(flat, refp, offs, prepad, match, mismatch)

@@ -6,7 +6,9 @@
   its first lane, (2B, nb) int32 each, without the (2B, D) count matrix.
 - ``extend_fold``: the Kadane extension of k candidates per oriented read
   — the stable top-k of those block maxima, or given offsets — and the
-  strand fold: the nine per-read record fields.
+  strand fold: the nine per-read record fields; in tile mode (the XL
+  engine) given (row, col) candidates of a tiled genome and the ten
+  TILE_FIELDS rows.
 
 A tensor on the CPU goes to the plain version (ops/anchor.py); a CUDA
 tensor launches the kernel, which is built at first use with ``nvcc`` for
@@ -25,7 +27,8 @@ import torch
 
 from anchored_fusion_tpu_torch.ops import cuda_build
 from anchored_fusion_tpu_torch.ops.anchor import (
-    BLOCK, K_CHUNK, SeedPatch, extend_fold_plain, seed_block_max_plain)
+    BLOCK, K_CHUNK, TILE_FIELDS, SeedPatch, extend_fold_plain,
+    seed_block_max_plain)
 
 SOURCE = os.path.join(cuda_build.CSRC, "anchor.cu")
 MAX_K = 128             # candidates a row: the extension's offset table
@@ -35,7 +38,8 @@ _lib = None
 # Kernel launches in this process, one count per kernel; the plain versions
 # never count.
 seed_launches = 0       # seed_block_max_cuda
-fold_launches = 0       # extend_fold_cuda
+fold_launches = 0       # extend_fold_cuda, block and offsets modes
+tile_launches = 0       # extend_fold_cuda, tile mode
 
 
 def build() -> str:
@@ -46,33 +50,18 @@ def ptxas_usage() -> list[dict]:
     """Registers, static shared memory and spill bytes of every kernel
     instantiation (the seeding kernel's by stream stride and variant), from
     the ptxas report of the build."""
-    build()
-    with open(cuda_build.paths(SOURCE, "anchor")[1]) as fh:
-        text = fh.read()
-    out, cur = [], None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\S*?"
-                      r"(seed_block_max_kernel|extend_fold_kernel)"
-                      r"(?:ILi(\d+)ELb([01])ELi(\d+)E)?", line)
-        if m:
-            cur = {"kernel": m.group(1)}
-            if m.group(2):
-                cur["stream_stride"] = int(m.group(2))
-                cur["chunked"] = m.group(3) == "1"
-                cur["stage_steps"] = int(m.group(4))
+    out = []
+    for e in cuda_build.ptxas_report(SOURCE, "anchor"):
+        m = re.search(r"(seed_block_max_kernel|extend_fold_kernel)"
+                      r"(?:ILi(\d+)ELb([01])ELi(\d+)E)?", e["entry"])
+        if not m:
             continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            cur["smem_bytes"] = int(m.group(2) or 0)
-            out.append(cur)
-            cur = None
+        cur = {"kernel": m.group(1)}
+        if m.group(2):
+            cur["stream_stride"] = int(m.group(2))
+            cur["chunked"] = m.group(3) == "1"
+            cur["stage_steps"] = int(m.group(4))
+        out.append({**cur, **{k: v for k, v in e.items() if k != "entry"}})
     return out
 
 
@@ -94,7 +83,7 @@ def seed_plan(M: int, R: int, stride: int, D: int) -> dict:
 
 def bind(lib):
     """Set the argument types of a built anchor library's C entries (the
-    plan entry only where the source has one)."""
+    plan and tile-mode entries only where the source has them)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.seed_block_max_launch.restype = i32
     lib.seed_block_max_launch.argtypes = [ptr, *[i32] * 4, ptr,
@@ -103,6 +92,11 @@ def bind(lib):
     lib.extend_fold_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr, i64,
                                        i64, ptr, ptr, ptr, *[i32] * 4,
                                        ptr, ptr, ptr]
+    if hasattr(lib, "extend_fold_tiles_launch"):
+        lib.extend_fold_tiles_launch.restype = i32
+        lib.extend_fold_tiles_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr,
+                                                 i64, i64, i64, ptr, ptr,
+                                                 i32, i32, ptr, ptr]
     if hasattr(lib, "seed_block_max_plan"):
         lib.seed_block_max_plan.restype = i32
         lib.seed_block_max_plan.argtypes = [*[i32] * 5, ptr]
@@ -164,25 +158,56 @@ def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
     return bmax, lane
 
 
+def _extend_fold_tiles_cuda(flat, coord_off, tiles, halo, match, mismatch,
+                            k, rows, cols) -> dict:
+    """The extension kernel's tile mode: candidates (rows, cols), windows
+    ``tiles[row, clamp(col + halo, 0, W - R) : ... + R]``."""
+    global tile_launches
+    dev = flat.device
+    N, R = flat.shape
+    _require("tiles", tiles, torch.int8, 2, dev)
+    for name, t in (("rows", rows), ("cols", cols)):
+        _require(name, t, torch.int32, 2, dev)
+        if tuple(t.shape) != (N, k):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(N, k)}")
+    if R > tiles.shape[1]:
+        raise ValueError(f"read width {R} exceeds the tile width "
+                         f"{tiles.shape[1]}")
+    B = N // 2
+    out = torch.empty((len(TILE_FIELDS), B), dtype=torch.int32, device=dev)
+    if B:
+        _run("extend_fold_tiles_launch",
+             (flat.data_ptr(), coord_off.data_ptr(), B, R, k,
+              tiles.data_ptr(), tiles.numel(), tiles.shape[1], halo,
+              rows.data_ptr(), cols.data_ptr(), match, mismatch,
+              out.data_ptr()), dev)
+        tile_launches += 1
+    return dict(zip(TILE_FIELDS, out))
+
+
 def extend_fold_cuda(flat: torch.Tensor, coord_off: torch.Tensor,
                      refp: torch.Tensor, prepad: int, match: int,
                      mismatch: int, k: int,
                      offs: Optional[torch.Tensor] = None,
                      bmax: Optional[torch.Tensor] = None,
                      lane: Optional[torch.Tensor] = None,
-                     D: Optional[int] = None) -> dict:
+                     D: Optional[int] = None,
+                     rows: Optional[torch.Tensor] = None) -> dict:
     """Launch the extension kernel on the current stream; the records of
     ops/anchor.py::extend_fold_plain."""
     global fold_launches
     dev = flat.device
     _require("flat", flat, torch.int8, 2, dev)
     _require("coord_off", coord_off, torch.int32, 1, dev)
-    _require("refp", refp, torch.int8, 1, dev)
     N, R = flat.shape
     if N % 2 or coord_off.shape[0] != N:
         raise ValueError("flat must hold 2B rows and coord_off 2B offsets")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k = {k} outside 1..{MAX_K}")
+    if rows is not None:
+        return _extend_fold_tiles_cuda(flat, coord_off, refp, prepad, match,
+                                       mismatch, k, rows, offs)
+    _require("refp", refp, torch.int8, 1, dev)
     if R > refp.shape[0]:
         raise ValueError(f"read width {R} exceeds the reference's "
                          f"{refp.shape[0]} codes")
@@ -226,17 +251,20 @@ def extend_fold(flat: torch.Tensor, coord_off: torch.Tensor,
                 k: int, offs: Optional[torch.Tensor] = None,
                 bmax: Optional[torch.Tensor] = None,
                 lane: Optional[torch.Tensor] = None,
-                D: Optional[int] = None) -> dict:
+                D: Optional[int] = None,
+                rows: Optional[torch.Tensor] = None) -> dict:
     """Per-read records (score, strand, read_start, read_end, matches,
     length, second_score, ref_start, ref_end) of (2B, R) oriented reads:
-    block mode with ``bmax``/``lane``/``D``, offsets mode with ``offs``.
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+    block mode with ``bmax``/``lane``/``D``, offsets mode with ``offs``;
+    tile mode with ``rows`` and ``offs`` (the columns), ``refp`` the tiles
+    and ``prepad`` their halo: the TILE_FIELDS records.  CUDA tensors run
+    the kernel, CPU tensors the plain version."""
     if flat.shape[1] > prepad:
-        # a clipped window must stay inside the PAD run
+        # a clipped window must stay inside the PAD run (the tiles' halo)
         raise ValueError(f"read width {flat.shape[1]} exceeds the "
                          f"reference's prepad {prepad}")
     args = (flat, coord_off, refp, prepad, match, mismatch, k)
-    kw = dict(offs=offs, bmax=bmax, lane=lane, D=D)
+    kw = dict(offs=offs, bmax=bmax, lane=lane, D=D, rows=rows)
     if flat.is_cuda:
         return extend_fold_cuda(*args, **kw)
     return extend_fold_plain(*args, **kw)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,3 +51,31 @@ def build(source: str, name: str) -> str:
         fh.write(proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_report(source: str, name: str) -> list[dict]:
+    """Each kernel entry of ``source``'s build (compiled first if need
+    be), from its ptxas report: {"entry" (the mangled name), "registers",
+    "smem_bytes", "spill_stores", "spill_loads"}."""
+    build(source, name)
+    with open(paths(source, name)[1]) as fh:
+        text = fh.read()
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur["smem_bytes"] = int(m.group(2) or 0)
+            out.append(cur)
+            cur = None
+    return out

@@ -43,10 +43,6 @@ _lib = None
 launches = 0        # sw_align_fused_cuda
 end_launches = 0    # sw_end_cuda
 
-def _paths() -> tuple[str, str]:
-    return cuda_build.paths(SOURCE, "sw")
-
-
 def build() -> str:
     """Compile csrc/sw.cu into a shared library (once per source hash); the
     compiler's per-kernel resource report is kept beside it."""
@@ -57,30 +53,14 @@ def ptxas_usage() -> list[dict]:
     """Registers and spill bytes of each kernel instantiation, from the
     ptxas report of the build: [{"rpl", "masked", "strips", "registers",
     "spill_stores", "spill_loads"}]."""
-    build()
-    with open(_paths()[1]) as fh:
-        text = fh.read()
-    out, cur = [], None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            t = re.search(r"sw_kernelILi(\d+)ELb([01])ELb([01])E",
-                          m.group(1))
-            cur = ({"rpl": int(t.group(1)), "masked": t.group(2) == "1",
-                    "strips": t.group(3) == "1"} if t else None)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"] = int(m.group(1))
-            cur["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            out.append(cur)
-            cur = None
+    out = []
+    for e in cuda_build.ptxas_report(SOURCE, "sw"):
+        t = re.search(r"sw_kernelILi(\d+)ELb([01])ELb([01])E", e["entry"])
+        if t:
+            out.append({"rpl": int(t.group(1)), "masked": t.group(2) == "1",
+                        "strips": t.group(3) == "1",
+                        **{k: e[k] for k in ("registers", "spill_stores",
+                                             "spill_loads")}})
     return sorted(out, key=lambda d: (d["masked"], d["strips"], d["rpl"]))
 
 

@@ -15,8 +15,9 @@ JAX package's root bench.py) on the bench phase's sample; and the
 hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
 
   device     card name and power limit (nvidia-smi)
-  kernel     registers and spill bytes of every kernel instantiation
-             (ptxas), then per batch (random at KERNEL_SHAPES, tie-heavy,
+  kernel     every CUDA source built at once (one nvcc each); registers
+             and spill bytes of every kernel instantiation (ptxas), then
+             per batch (random at KERNEL_SHAPES, tie-heavy,
              forward-only with random masks): kernel vs plain equality,
              kernel_ms, plain_ms, bound_ms (and the bound at the plain
              recurrence's 12 operations a cell), share of bound, launches;
@@ -37,16 +38,26 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              share_of_bound, the seeding's launch plan, and for main_path's
              case the product alone: torch.matmul in float32 and bfloat16
              at D columns, bfloat16 at the padded width nb*128, and
-             torch._int_mm in int8 at the padded width
+             torch._int_mm in int8 at the padded width; then a third line
+             for the genome kernels: seed_vote (csrc/seed_vote.cu, ptxas of
+             both modes) at bench/seed_vote_bench.py's SHAPES — the XL
+             pass-1 and rescue points on an hg38-size synthetic index, the
+             flat engine's main-path chunk, the sharded engine at H 32 —
+             and EDGE_SHAPES — rows in global scratch, 2 rows, 1,001 rows,
+             a prefix table — and extend_fold's tile mode on the XL cases'
+             candidates over hg38-size tiles: every output equal, one
+             launch a case, kernel_ms, device_ms, plain_ms, the data's
+             bytes and sectors, bound_ms, and the yardstick: one
+             torch.sort of the rows' int64 keys
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
              engine and on the XL and sharded engines (forced); the same for
              call_gene_cells on the cells of tests/test_pipeline_synthetic.py
              (one of them in 160-wide rows): sc_rows_equal,
              sc_counters_equal
   main_path  per-stage times, reads/s, peak device memory, kernel launches
-             (the anchored kernels' too), a sample of the anchored
-             kernels' batches held equal to the plain versions, and both
-             kernels timed on this path's own first batches
+             (the anchored and genome kernels' too), a sample of their
+             batches held equal to the plain versions, and each kernel
+             timed on this path's own first batch
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
   sc_path    call_gene_cells on the main_path pipeline: 96 cells of 50,000
@@ -58,8 +69,9 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              160-wide half equal to call_gene alone; a profiled warm repeat
   engines    the flat (device index build), XL and sharded engines on the
              main_path genome at the real tile size: equal records on
-             131,072 reads; the device index build == the host build
-             (20 Mbp)
+             131,072 reads, each engine's first genome-kernel batches
+             equal to the plain versions; the device index build == the
+             host build (20 Mbp)
   filter     the filter model at full width on 4,096 random rows:
              P(class 1) on cuda vs the same weights on cpu (max_abs_diff,
              bound 1e-4), scoring rows/s, training steps/s at batch 256,
@@ -126,9 +138,12 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              pairs, the CLI's auto hg38 point: the XL engine (index build,
              resident and peak bytes, a cold and a warm call, 262,144 reads
              through GenomeAlignerXL.align with recall, rescue share, a
-             profile and the device programs' times), then the sharded
-             engine (stride 1, k 13, 3 shards); the engineered ANCA--PRTB
-             call must be made at its breakpoint with the partner past int32
+             profile and the device programs' times, each through the
+             kernels and as the plain torch chain on the card), then the
+             sharded engine (stride 1, k 13, 3 shards); the engineered
+             ANCA--PRTB call must be made at its breakpoint with the
+             partner past int32; both engines' first genome-kernel batches
+             equal to the plain versions
   (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path, in
@@ -149,7 +164,13 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              alone through torch.matmul, float32; bfloat16 beside it), the
              kernel phase's cases, and the largest difference from the
              plain versions over those cases and the main_path and
-             sc_path samples
+             sc_path samples.  Then seed_vote (launches: main_path's) and
+             extend_fold_tiles, the extension's tile mode (launches:
+             xl_path's, the XL engine's path), with the same launch
+             counts, times and bound on the path's first batch (xl_path's
+             XL batch beside seed_vote's), the yardstick (torch.sort) and
+             the largest difference over the cases and every path's
+             samples
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -256,14 +277,17 @@ def phase_kernel():
     KERNEL_SHAPES, a tie-heavy batch, and the forward-only entry with random
     masks; then at LONG_SHAPES, rows walked in strips, random and tie-heavy
     pairs through the fused entry and random masks through the forward-only
-    one.  Then the anchored kernels (anchor_kernel_cases).  Returns the
-    long-row records and the anchored kernels' record."""
+    one.  Then the anchored kernels (anchor_kernel_cases) and the genome
+    kernels (seed_vote_kernel_cases).  Every source is built first, all at
+    once.  Returns the long-row records, the anchored kernels' record and
+    the genome kernels' record."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
     from anchored_fusion_tpu_torch.config import AlignConfig
     from anchored_fusion_tpu_torch.ops import sw_cuda
 
+    emit({"phase": "kernel", "name": "build", **build_kernels()})
     t0 = time.time()
     so = sw_cuda.build()
     build_s = time.time() - t0
@@ -299,7 +323,7 @@ def phase_kernel():
           "library": os.path.basename(so), "build_s": round(build_s, 3),
           "ptxas": sw_cuda.ptxas_usage(), "shapes": results})
     return ([r for r in results if r["kind"].startswith("long")],
-            anchor_kernel_cases())
+            anchor_kernel_cases(), seed_vote_kernel_cases())
 
 
 # ------------------------------------------------------- anchored kernels
@@ -310,6 +334,10 @@ def phase_kernel():
 # engine's offsets case, then EDGE_SHAPES (2, 130 and 65,538 rows,
 # 1,024-wide reads, a single-block reference, stride 3).
 ANCHOR_SAMPLE = 2           # launches kept per kernel, mode and shape
+# The hand-written kernels call_gene on the flat engine launches (besides
+# the SW kernel), and those of the XL engine's align.
+MAIN_KERNELS = ("seed_block_max", "extend_fold", "seed_vote")
+XL_KERNELS = ("seed_vote", "extend_fold_tiles")
 
 
 def _records_equal(got: dict, want: dict):
@@ -348,6 +376,30 @@ def seed_library_ms(flat, seed, stride: int) -> dict:
     return rec
 
 
+def kernel_device_ms(fn, name: str):
+    """bench/anchor_bench.py's device time of the kernel ``name`` under
+    torch.profiler, or None where the profiler recorded none of its
+    intervals (the CUDA-event time then stands in: _ms_of)."""
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
+    try:
+        return ab.device_ms(fn, name)
+    except RuntimeError:
+        return None
+
+
+def _share(bound: float, ms):
+    return bound / ms if ms else None
+
+
+def _ms_of(t: dict) -> tuple:
+    """A timed case's kernel time for the kernels line: the profiler's
+    device time, or the CUDA-event time of one call where the profiler
+    recorded no interval; and which it is."""
+    if t["device_ms"] is not None:
+        return t["device_ms"], "profiler"
+    return t["kernel_ms"], "cuda_events"
+
+
 def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
               library: bool = True) -> dict:
     """The seeding kernel against its plain version on one batch: equality
@@ -378,13 +430,13 @@ def seed_case(name: str, flat, seed, stride: int, plain_reps: int = 3,
                lambda: anchor.seed_block_max_plain(flat, seed.f32, stride),
                plain_reps),
            "bound_ms": bound, "bound_by": by, "launches": launched}
-    rec["device_ms"] = ab.device_ms(
+    rec["device_ms"] = kernel_device_ms(
         lambda: anchor_cuda.seed_block_max_cuda(flat, seed, stride),
         "seed_block_max_kernel")
     if library:
         rec.update(seed_library_ms(flat, seed, stride))
     rec["share_of_bound"] = bound / rec["kernel_ms"]
-    rec["device_share_of_bound"] = bound / rec["device_ms"]
+    rec["device_share_of_bound"] = _share(bound, rec["device_ms"])
     return rec
 
 
@@ -392,35 +444,151 @@ def fold_case(name: str, args: tuple, cand: dict,
               plain_reps: int = 3) -> dict:
     """The extension kernel against its plain version on one batch, ``args``
     (flat, coord_off, refp, prepad, match, mismatch, k) and ``cand`` (block
-    mode: ``bmax``, ``lane``, ``D``; offsets mode: ``offs``): equality of
-    the nine record fields, launches, times and the bound."""
+    mode: ``bmax``, ``lane``, ``D``; offsets mode: ``offs``; tile mode:
+    ``offs`` and ``rows``, refp the tiles): equality of every record
+    field, launches, times and the bound."""
     import torch
     from anchored_fusion_tpu_torch.bench import anchor_bench as ab
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
     from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
 
+    from anchored_fusion_tpu_torch.bench import seed_vote_bench as svb
+
     flat, refp, k = args[0], args[2], args[6]
-    before = anchor_cuda.fold_launches
+    mode = _fold_mode(cand)
+    count = "tile_launches" if mode == "tiles" else "fold_launches"
+    before = getattr(anchor_cuda, count)
     got = anchor_cuda.extend_fold_cuda(*args, **cand)
     torch.cuda.synchronize()
-    launched = anchor_cuda.fold_launches - before
+    launched = getattr(anchor_cuda, count) - before
     want = anchor.extend_fold_plain(*args, **cand)
     equal, err = _records_equal(got, want)
     N, R = flat.shape
     nb = cand["bmax"].shape[1] if cand.get("bmax") is not None else 0
-    bound, by = ab.fold_bound_ms(N, R, k, refp.shape[0], nb)
+    bound, by = (svb.tile_fold_bound_ms(N, R, k, refp.numel())
+                 if mode == "tiles" else
+                 ab.fold_bound_ms(N, R, k, refp.shape[0], nb))
     kernel_ms = swb.time_ms(lambda: anchor_cuda.extend_fold_cuda(
         *args, **cand), 20)
-    device_ms = ab.device_ms(lambda: anchor_cuda.extend_fold_cuda(
+    device_ms = kernel_device_ms(lambda: anchor_cuda.extend_fold_cuda(
         *args, **cand), "extend_fold_kernel")
     return {"kind": name, "rows": N, "R": R, "k": k,
-            "mode": "offsets" if nb == 0 else "block", "equal": equal,
+            "mode": mode, "equal": equal,
             "max_abs_err": err, "kernel_ms": kernel_ms, "device_ms": device_ms,
             "plain_ms": swb.time_ms(
                 lambda: anchor.extend_fold_plain(*args, **cand), plain_reps),
             "bound_ms": bound, "bound_by": by,
             "share_of_bound": bound / kernel_ms,
-            "device_share_of_bound": bound / device_ms, "launches": launched}
+            "device_share_of_bound": _share(bound, device_ms),
+            "launches": launched}
+
+
+def seed_vote_case(name: str, args: tuple, tile,
+                   plain_reps: int = 3) -> dict:
+    """The genome seeding kernel against its plain version on one batch,
+    ``args`` seed_vote's positional arguments: equality of its outputs,
+    launches, kernel and plain times, the data's bytes and sectors and the
+    bound (bench/seed_vote_bench.py), and the yardstick: one torch.sort of
+    the row's Q*H int64 keys."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import seed_vote_bench as svb
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import seed_vote, seed_vote_cuda
+
+    run = lambda: seed_vote_cuda.seed_vote_cuda(*args, tile=tile)  # noqa: E731
+    before = seed_vote_cuda.launches
+    got = run()
+    torch.cuda.synchronize()
+    launched = seed_vote_cuda.launches - before
+    want = seed_vote.seed_vote_plain(*args, tile=tile)
+    equal, err = _records_equal(_vote_outputs(got), _vote_outputs(want))
+    flat, k, kb, stride, H, top_k = (args[0], *args[5:])
+    N, R = flat.shape
+    Q = args[4].numel()
+    rec = {"kind": name, "mode": "diag" if tile is None else "tile",
+           "rows": N, "R": R, "k": k, "kb": kb, "stride": stride, "H": H,
+           "top_k": top_k, "index_slots": args[3].numel(),
+           "plan": seed_vote_cuda.plan(N, Q, H), "equal": equal,
+           "max_abs_err": err, "launches": launched,
+           "kernel_ms": swb.time_ms(run, 20),
+           "device_ms": kernel_device_ms(run, "seed_vote_kernel"),
+           "plain_ms": swb.time_ms(
+               lambda: seed_vote.seed_vote_plain(*args, tile=tile),
+               plain_reps),
+           "sort_ms": svb.sort_library_ms(N, Q * H)}
+    w = svb.seed_vote_work(args, tile)
+    rec["work"] = w
+    rec["bound_ms"], rec["bound_by"], rec["sector_bound_ms"] = (
+        svb.seed_vote_bound_ms(w))
+    rec["device_share_of_bound"] = _share(rec["bound_ms"], rec["device_ms"])
+    rec["device_share_of_sector_bound"] = _share(rec["sector_bound_ms"],
+                                                 rec["device_ms"])
+    return rec
+
+
+def seed_vote_kernel_cases() -> dict:
+    """Hold the genome seeding kernel equal to its plain version at
+    bench/seed_vote_bench.py's SHAPES (the XL pass-1 and rescue points, the
+    flat engine's main-path chunk, the sharded engine at H 32) and
+    EDGE_SHAPES (rows in global scratch, 2 rows, an odd row count, a
+    prefix table), and the extension's tile mode on the XL cases' voted
+    candidates over hg38-size tiles, edited so that some slots are empty,
+    some columns negative and some rows the last; every output equal,
+    every case one launch.  Returns the kernel phase's record."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import seed_vote_bench as svb
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.ops import seed_vote_cuda
+
+    cfg = AlignConfig()
+    votes, folds, tiles = [], [], None
+    for shape in svb.SHAPES + svb.EDGE_SHAPES:
+        args, tile, co = svb.shape_inputs(shape)
+        votes.append(seed_vote_case(shape[0], args, tile))
+        if shape[0].startswith("xl_"):
+            if tiles is None:
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(1)
+                tiles = svb.synthetic_tiles(gen, shape[10], shape[11],
+                                            shape[12], "cuda")
+            rows, cols = seed_vote_cuda.seed_vote_cuda(*args, tile=tile)
+            T = tile[2]
+            rows[::5, -1], cols[::5, -1] = T, 0
+            cols[1::7, 0] = -(svb.TILE_HALO // 2)
+            rows[2::7, 0] = T - 1
+            folds.append(fold_case(
+                shape[0] + "_tiles",
+                (args[0], co, tiles, svb.TILE_HALO, cfg.match_score,
+                 cfg.mismatch_penalty, args[9]),
+                dict(offs=cols, rows=rows)))
+        del args, tile, co
+        torch.cuda.empty_cache()
+    del tiles
+    torch.cuda.empty_cache()
+    rec = {"phase": "kernel", "name": "seed_vote, extend_fold (tile mode)",
+           "library": os.path.basename(seed_vote_cuda.build()),
+           "ptxas": seed_vote_cuda.ptxas_usage(), "seed_vote": votes,
+           "extend_fold_tiles": folds}
+    emit(rec)
+    bad = [f"{r['kind']}" for r in votes + folds
+           if not all(r["equal"].values()) or r["launches"] != 1
+           or r["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"genome kernels disagree: {bad}")
+    return rec
+
+
+def build_kernels() -> dict:
+    """Build every CUDA source of the package at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+    from anchored_fusion_tpu_torch.ops import (
+        anchor_cuda, seed_vote_cuda, sw_cuda)
+    mods = {"sw": sw_cuda, "anchor": anchor_cuda, "seed_vote": seed_vote_cuda}
+    t0 = time.time()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {n: ex.submit(m.build) for n, m in mods.items()}
+        libs = {n: os.path.basename(f.result()) for n, f in futs.items()}
+    return {"libraries": libs, "build_s": round(time.time() - t0, 3)}
 
 
 def sass_instructions(so: str) -> dict:
@@ -510,14 +678,15 @@ def anchor_kernel_cases() -> dict:
 @contextlib.contextmanager
 def capturing_anchor(captured: list):
     """While the block runs, keep copies of the inputs of the first
-    ANCHOR_SAMPLE launches of each anchored kernel at each (mode, shape) in
-    ``captured`` (references and patch matrices are held, not copied: the
-    path does not change them), to hold them equal to the plain versions
-    afterwards."""
-    from anchored_fusion_tpu_torch.ops import anchor_cuda
+    ANCHOR_SAMPLE launches of each anchored and genome kernel at each
+    (mode, shape) in ``captured`` (references, patch matrices, indexes and
+    tiles are held, not copied: the path does not change them), to hold
+    them equal to the plain versions afterwards."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
 
     seed_fn = anchor_cuda.seed_block_max_cuda
     fold_fn = anchor_cuda.extend_fold_cuda
+    vote_fn = seed_vote_cuda.seed_vote_cuda
     seen = {}
 
     def keep(key) -> bool:
@@ -530,7 +699,7 @@ def capturing_anchor(captured: list):
         return seed_fn(flat, seed, stride)
 
     def fold_rec(flat, coord_off, refp, *args, **cand):
-        key = ("fold", tuple(flat.shape), cand.get("offs") is None)
+        key = ("fold", tuple(flat.shape), _fold_mode(cand))
         if keep(key):
             captured.append(("fold", (flat.clone(), coord_off.clone(), refp,
                                       *args),
@@ -538,27 +707,78 @@ def capturing_anchor(captured: list):
                               for n, v in cand.items()}))
         return fold_fn(flat, coord_off, refp, *args, **cand)
 
+    def vote_rec(flat, *args, tile=None):
+        if keep(("seed_vote", tuple(flat.shape), tile is None, *args[-2:])):
+            captured.append(("seed_vote", (flat.clone(), *args),
+                             {"tile": tile}))
+        return vote_fn(flat, *args, tile=tile)
+
     anchor_cuda.seed_block_max_cuda = seed_rec
     anchor_cuda.extend_fold_cuda = fold_rec
+    seed_vote_cuda.seed_vote_cuda = vote_rec
     try:
         yield
     finally:
         anchor_cuda.seed_block_max_cuda = seed_fn
         anchor_cuda.extend_fold_cuda = fold_fn
+        seed_vote_cuda.seed_vote_cuda = vote_fn
 
 
 def anchor_counts() -> dict:
-    """The anchored kernels' launch counts in this process."""
-    from anchored_fusion_tpu_torch.ops import anchor_cuda
+    """The anchored and genome kernels' launch counts in this process
+    (the extension's tile mode apart from its other modes)."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
     return {"seed_block_max": anchor_cuda.seed_launches,
-            "extend_fold": anchor_cuda.fold_launches}
+            "extend_fold": anchor_cuda.fold_launches,
+            "seed_vote": seed_vote_cuda.launches,
+            "extend_fold_tiles": anchor_cuda.tile_launches}
+
+
+def reset_anchor_counts() -> None:
+    """Set every count of anchor_counts to 0."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
+    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
+    anchor_cuda.tile_launches = seed_vote_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block (comparisons with the plain versions,
+    timings) leave the anchored and genome kernels' counts as they were."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
+    saved = anchor_counts()
+    try:
+        yield
+    finally:
+        anchor_cuda.seed_launches = saved["seed_block_max"]
+        anchor_cuda.fold_launches = saved["extend_fold"]
+        anchor_cuda.tile_launches = saved["extend_fold_tiles"]
+        seed_vote_cuda.launches = saved["seed_vote"]
+
+
+def not_launched(counts: dict, names) -> list:
+    """The kernels of ``names`` that a path's run never launched."""
+    return [n for n in names if not counts[n]]
+
+
+def _fold_mode(cand: dict) -> str:
+    if cand.get("rows") is not None:
+        return "tiles"
+    return "offsets" if cand.get("offs") is not None else "block"
+
+
+def _vote_outputs(out) -> dict:
+    return ({"diag": out} if not isinstance(out, tuple)
+            else {"rows": out[0], "cols": out[1]})
 
 
 def check_anchor_batches(captured) -> dict:
-    """Both anchored kernels against their plain versions on every captured
-    batch (launches made here are not counted on any path)."""
-    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
-    equal, err, shapes = True, 0, []
+    """The anchored and genome kernels against their plain versions on
+    every captured batch (launches made here are not counted on any
+    path); the largest difference by kernel."""
+    from anchored_fusion_tpu_torch.ops import (
+        anchor, anchor_cuda, seed_vote, seed_vote_cuda)
+    equal, err, shapes, by_kernel = True, 0, [], {}
     for kind, args, kw in captured:
         if kind == "seed":
             flat, seed, stride = args
@@ -566,31 +786,46 @@ def check_anchor_batches(captured) -> dict:
                 flat, seed, stride)))
             want = dict(zip(("bmax", "lane"), anchor.seed_block_max_plain(
                 flat, seed.f32, stride)))
+            name, mode = "seed_block_max", ""
+        elif kind == "seed_vote":
+            got = _vote_outputs(seed_vote_cuda.seed_vote_cuda(*args, **kw))
+            want = _vote_outputs(seed_vote.seed_vote_plain(*args, **kw))
+            name, mode = "seed_vote", ("diag" if kw["tile"] is None
+                                       else "tile")
         else:
             got = anchor_cuda.extend_fold_cuda(*args, **kw)
             want = anchor.extend_fold_plain(*args, **kw)
+            mode = _fold_mode(kw)
+            name = "extend_fold_tiles" if mode == "tiles" else "extend_fold"
         eq, e = _records_equal(got, want)
         equal = equal and all(eq.values())
         err = max(err, e)
-        shapes.append([kind, *args[0].shape,
-                       "offsets" if kw.get("offs") is not None else "block"])
-    return {"batches": shapes, "equal": equal, "max_abs_err": err}
+        by_kernel[name] = max(by_kernel.get(name, 0), e)
+        shapes.append([kind, *args[0].shape, mode])
+    return {"batches": shapes, "equal": equal, "max_abs_err": err,
+            "max_abs_err_by_kernel": by_kernel}
 
 
-def anchor_path_times(captured) -> dict:
-    """Both anchored kernels timed beside their plain versions on the first
-    captured batch of each: the seeding (and the product alone through
-    torch.matmul), the extension in block mode (the anchored stage) and in
-    offsets mode (the flat engine's rescue)."""
+def anchor_path_times(captured, path: str = "main_path",
+                      keys=("seed", "block", "offsets", "tiles",
+                            "seed_vote")) -> dict:
+    """The anchored and genome kernels timed beside their plain versions on
+    the first captured batch of each (of ``keys``): the seeding (and the
+    product alone through torch.matmul), the extension in block mode (the
+    anchored stage), offsets mode (the flat engine's rescue) and tile mode
+    (the XL engine), and the genome seeding (and the row sort alone)."""
     out = {}
     for kind, args, kw in captured:
-        if kind == "seed" and "seed" not in out:
+        key = _fold_mode(kw) if kind == "fold" else kind
+        if key not in keys or key in out:
+            continue
+        if kind == "seed":
             flat, seed, stride = args
-            out["seed"] = seed_case("main_path", flat, seed, stride)
-        elif kind == "fold":
-            mode = "offsets" if kw.get("offs") is not None else "block"
-            if mode not in out:
-                out[mode] = fold_case(f"main_path_{mode}", args, kw)
+            out[key] = seed_case(path, flat, seed, stride)
+        elif kind == "seed_vote":
+            out[key] = seed_vote_case(path, args, kw["tile"])
+        else:
+            out[key] = fold_case(f"{path}_{key}", args, kw)
     return out
 
 
@@ -635,7 +870,7 @@ def anchor_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
             "bench_launches": bench["anchor_launches"][name],
             "headline_launches": headline["anchor_launches"][name],
             "xl_launches": xl["anchor_launches"][name],
-            "max_abs_err": err, "ms": t["device_ms"],
+            "max_abs_err": err, "ms": _ms_of(t)[0], "ms_source": _ms_of(t)[1],
             "event_ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
@@ -664,6 +899,87 @@ def anchor_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
            or not e["main_path_samples_equal"] or not e["sc_samples_equal"]]
     if bad:
         raise AssertionError(f"anchored kernels disagree: {bad}")
+    return out
+
+
+GENOME_REPLACES = {
+    "seed_vote": ("anchored_fusion_tpu/align/genome.py:35",
+                  ["anchored_fusion_tpu/align/genome_xl.py:176",
+                   "anchored_fusion_tpu/parallel/sharded_genome.py:120",
+                   "anchored_fusion_tpu/index/kmer.py:236",
+                   "anchored_fusion_tpu/index/kmer.py:262",
+                   "anchored_fusion_tpu/index/kmer.py:348",
+                   "anchored_fusion_tpu/index/kmer.py:317"]),
+    "extend_fold_tiles": ("anchored_fusion_tpu/align/genome_xl.py:221",
+                          ["anchored_fusion_tpu/align/genome_xl.py:200"]),
+}
+_TIME_KEYS = ("rows", "R", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+              "bound_by")
+
+
+def genome_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
+                          engines: dict, mesh: dict, bench: dict,
+                          headline: dict, xl: dict) -> list[dict]:
+    """The kernels line's entries of the genome seeding kernel and of the
+    extension's tile mode: launches in each phase's driven run (the tile
+    mode runs on the XL engine alone, so its ``launches`` are xl_path's),
+    times and bound on the path's own first batch (seed_vote: main_path's
+    flat engine, with xl_path's XL batch beside it; the tile mode:
+    xl_path's), the kernel phase's cases, and the largest difference from
+    the plain versions over those cases and every path's samples.  The
+    seeding's library yardstick is one torch.sort of the rows' int64 keys:
+    no PyTorch call computes the whole function."""
+    checks = [main["anchor_check"], sc["anchor_check"],
+              *engines["anchor_check"].values(), xl["xl"]["anchor_check"],
+              xl["sharded"]["anchor_check"]]
+    out = []
+    for name, cases, (times, key) in (
+            ("seed_vote", kernel["seed_vote"],
+             (main["anchor_times"], "seed_vote")),
+            ("extend_fold_tiles", kernel["extend_fold_tiles"],
+             (xl["xl"]["kernel_times"], "tiles"))):
+        t = times[key]
+        err = max([c["max_abs_err"] for c in cases]
+                  + [c["max_abs_err_by_kernel"].get(name, 0)
+                     for c in checks])
+        counts = {"main_path": main, "sc": sc, "engines": engines,
+                  "bench": bench, "headline": headline, "xl": xl}
+        rep_, also = GENOME_REPLACES[name]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/" + ("seed_vote.cu" if name == "seed_vote"
+                                        else "anchor.cu"),
+            "replaces": rep_, "also_replaces": also,
+            "launches": (main if name == "seed_vote"
+                         else xl)["anchor_launches"][name],
+            "launches_path": "main_path" if name == "seed_vote" else "xl_path",
+            **{f"{k}_launches": v["anchor_launches"][name]
+               for k, v in counts.items()},
+            "cli_launches": cli["here_anchor_launches"][name],
+            "mesh_launches": mesh["pipeline"]["anchor_launches"][name],
+            "max_abs_err": err, "ms": _ms_of(t)[0], "ms_source": _ms_of(t)[1],
+            "event_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("sort_ms"),
+            "path_batch": {k: t[k] for k in _TIME_KEYS},
+            "samples_equal": all(c["equal"] for c in checks),
+            "cases": [{k: c[k] for k in ("kind", "rows", "R", "kernel_ms",
+                                         "device_ms", "plain_ms", "bound_ms",
+                                         "device_share_of_bound")
+                       + (("sort_ms", "sector_bound_ms")
+                          if name == "seed_vote" else ())}
+                      for c in cases]}
+        if name == "seed_vote":
+            x = xl["xl"]["kernel_times"]["seed_vote"]
+            entry["library_call"] = "torch.sort, int64 keys, dim 1"
+            entry["sector_bound_ms"] = t["sector_bound_ms"]
+            entry["xl_path_batch"] = {k: x[k] for k in (
+                *_TIME_KEYS, "sort_ms", "sector_bound_ms", "H", "top_k")}
+        out.append(entry)
+    bad = [e["name"] for e in out if e["max_abs_err"]
+           or not e["samples_equal"]]
+    if bad:
+        raise AssertionError(f"genome kernels disagree: {bad}")
     return out
 
 
@@ -924,11 +1240,11 @@ def main_path_inputs(genome_bp: int, n_pairs: int, seed: int = 5):
 
 @contextlib.contextmanager
 def capturing_sw(captured: list):
-    """Set the SW kernels' and the anchored kernels' launch counts to 0,
-    then, while the block runs, keep a copy of the inputs of every fused SW
+    """Set the SW kernels' and the anchored and genome kernels' launch
+    counts to 0, then, while the block runs, keep a copy of the inputs of every fused SW
     launch in ``captured``, to check and time the kernel on exactly those
     tensors afterwards."""
-    from anchored_fusion_tpu_torch.ops import anchor_cuda, sw_cuda
+    from anchored_fusion_tpu_torch.ops import sw_cuda
 
     kernel_fn = sw_cuda.sw_align_fused_cuda
 
@@ -938,7 +1254,7 @@ def capturing_sw(captured: list):
 
     sw_cuda.sw_align_fused_cuda = recording
     sw_cuda.launches = sw_cuda.end_launches = 0
-    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
+    reset_anchor_counts()
     try:
         yield
     finally:
@@ -1023,7 +1339,7 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         raise AssertionError(f"decoy called: {fusions}")
     if device == "cuda" and launches == 0:
         raise AssertionError("main path launched no SW kernel")
-    if device == "cuda" and not all(anchor_launches.values()):
+    if device == "cuda" and not_launched(anchor_launches, MAIN_KERNELS):
         raise AssertionError(f"main path anchored launches {anchor_launches}")
     if device == "cuda" and not rec["anchor_check"]["equal"]:
         raise AssertionError("anchored kernels disagree on main-path batches")
@@ -1256,7 +1572,7 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
         problems.append(f"serial call_gene differs: {serial}")
     if cuda and (not launches or launches != len(captured)):
         problems.append(f"{launches} SW launches, {len(captured)} captured")
-    if cuda and (not all(anchor_launches.values())
+    if cuda and (not_launched(anchor_launches, MAIN_KERNELS)
                  or not anchor_check["equal"]):
         problems.append(f"anchored launches {anchor_launches}, equal to "
                         f"the plain versions {anchor_check['equal']}")
@@ -2039,9 +2355,12 @@ def phase_engines(genome) -> dict:
     device build against XL (ref_start, ref_end, strand, score, matches
     equal, as tests/test_genome_xl.py requires of JAX) and against the
     sharded engine with 3 shards (ref_start, ref_end, strand equal, as
-    tests/test_sharded_genome.py requires).  Then on a 20 Mbp genome with N
-    runs, the device index build against the host build: keys and
-    positions of the valid slots, and the table."""
+    tests/test_sharded_genome.py requires).  Each engine's first batches
+    of the genome seeding kernel, and of the extension (offsets mode for
+    flat and sharded, tile mode for XL), are held equal to the plain
+    versions.  Then on a 20 Mbp genome with N runs, the device index build
+    against the host build: keys and positions of the valid slots, and the
+    table."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.align.genome import GenomeAligner
@@ -2052,13 +2371,12 @@ def phase_engines(genome) -> dict:
     from anchored_fusion_tpu_torch.parallel.sharded_genome import (
         ShardedGenomeAligner)
 
-    from anchored_fusion_tpu_torch.ops import anchor_cuda
-
     cfg = AlignConfig(gapped_refine=False, index_stride=2)
     reads, _, _ = sample_reads(np.random.default_rng(3), genome.seq,
                                CHECK_READS)
-    engines, build_s, align_s, out = {}, {}, {}, {}
-    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
+    engines, build_s, align_s, out, checks = {}, {}, {}, {}, {}
+    captured = []
+    reset_anchor_counts()
     for name, make in (
             ("flat", lambda: GenomeAligner(genome, cfg, device="cuda",
                                            device_build=True)),
@@ -2070,8 +2388,14 @@ def phase_engines(genome) -> dict:
         torch.cuda.synchronize()
         build_s[name] = time.time() - t0
         t0 = time.time()
-        out[name] = engines[name].align(reads)
+        with capturing_anchor(captured):
+            out[name] = engines[name].align(reads)
         align_s[name] = time.time() - t0
+        # a sample of the engine's genome-kernel batches (the index is held
+        # by the capture until here)
+        with uncounted():
+            checks[name] = check_anchor_batches(captured)
+        captured.clear()
         del engines[name]
     anchor_launches = anchor_counts()
     torch.cuda.empty_cache()
@@ -2110,7 +2434,7 @@ def phase_engines(genome) -> dict:
                                  for k, v in align_s.items()},
            "xl_vs_flat_differing": xl_diff,
            "sharded_vs_flat_differing": sh_diff,
-           "anchor_launches": anchor_launches,
+           "anchor_launches": anchor_launches, "anchor_check": checks,
            "index_check": {"genome_bp": INDEX_CHECK_BP, "k": 13, "kb": kb,
                            "valid_slots": nv, "slots": len(codes) - 12,
                            "host_build_s": host_s, "device_build_s": dev_s,
@@ -2119,6 +2443,10 @@ def phase_engines(genome) -> dict:
     if any(xl_diff.values()) or any(sh_diff.values()):
         raise AssertionError("the genome engines disagree at the real tile "
                              "size")
+    missing = not_launched(anchor_launches, ("extend_fold", *XL_KERNELS))
+    if missing or not all(c["equal"] for c in checks.values()):
+        raise AssertionError(f"engines: kernels not launched {missing} or "
+                             "unequal to their plain versions")
     if not all(index_equal.values()):
         raise AssertionError(f"device index build != host build: "
                              f"{index_equal}")
@@ -2167,40 +2495,70 @@ def _timed_call(pipe, anchor_codes, batch, out_prefix, break5) -> dict:
                         break5)
 
 
-def program_ms(fn) -> dict:
+def program_ms(fn, reps: int = 5) -> dict:
     """One device program's time after a warm call: ``device_ms``, the busy
-    time of its kernels under torch.profiler, and ``event_ms``, CUDA events
-    around it (median of 5; host launch gaps included)."""
+    time of its kernels under torch.profiler over ``reps`` calls, a call's
+    share (``device_events`` the intervals it recorded a call; the profiler
+    has recorded none in some sessions: null then), and ``event_ms``, CUDA
+    events around one call (median of 5; host launch gaps included)."""
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
     fn()
-    busy = profiled(fn)[1]
-    return {"device_ms": busy * 1e3 if busy is not None else None,
-            "event_ms": swb.time_ms(fn, 5)}
+    _, busy, events, _ = profiled(lambda: [fn() for _ in range(reps)])
+    return {"device_ms": busy * 1e3 / reps if busy is not None else None,
+            "device_events": events / reps, "event_ms": swb.time_ms(fn, 5)}
 
 
 def xl_programs(ga, codes, reads) -> dict:
-    """The slice's device programs (ROADMAP §2) on XL_CHUNK reads: G+J the
-    XL seed (read k-mer keys, table lookup, two-key vote) at the pass-1 and
-    rescue points, J the extension (tile window gather, Kadane, strand
-    fold); H the device index build of the first 2^28 bases at the XL
-    point."""
+    """The slice's device programs (ROADMAP §2) on XL_CHUNK reads, each
+    timed two ways on the same inputs: through the kernels (the engine's
+    own calls) and as the plain torch chain on the card (``*_plain``): G+J
+    the XL seed (read k-mer keys, table lookup, two-key vote; the seeding
+    kernel in tile mode) at the pass-1 and rescue points, J the extension
+    (tile window gather, Kadane, strand fold; the extension kernel in tile
+    mode), with the two ways' outputs held equal (``*_equal``); H the
+    device index build of the first 2^28 bases at the XL point."""
     import torch
-    from anchored_fusion_tpu_torch.align.genome_xl import _xl_extend_core
+    from anchored_fusion_tpu_torch.align.aligner import both_strands
+    from anchored_fusion_tpu_torch.align.genome_xl import (
+        XL_FIELDS, _xl_extend_core)
     from anchored_fusion_tpu_torch.index.kmer import build_shard_index_device
+    from anchored_fusion_tpu_torch.ops import anchor, seed_vote
     cfg = ga.cfg
     seqs = ga._prepare(reads[:XL_CHUNK])
     r = torch.from_numpy(seqs).cuda()
     offs = ga._offsets(seqs.shape[1])
+    tile = (ga.C // ga.index_stride, ga.index_stride, ga.tiles.shape[0] - 1)
+    score = (cfg.match_score, cfg.mismatch_penalty)
+
+    def seed_plain(tk, mh):
+        flat, _ = both_strands(r)
+        return seed_vote.seed_vote_plain(flat, ga.table, ga.table[:1],
+                                         ga.pos_div, offs, ga.k, ga.k,
+                                         ga.stride, mh, tk, tile=tile)
+
+    def extend_plain(rc, cc, tk):
+        flat, co = both_strands(r)
+        rec = anchor.extend_fold_plain(flat, co, ga.tiles, ga.halo, *score,
+                                       tk, offs=cc, rows=rc)
+        return torch.stack([rec[f] for f in XL_FIELDS])
+
     out = {"chunk_reads": XL_CHUNK, "width": int(seqs.shape[1])}
     for point, tk, mh in (("pass1", cfg.xl_pass1_top_k, cfg.xl_pass1_hits),
                           ("rescue", cfg.xl_rescue_top_k, cfg.xl_rescue_hits)):
-        out[f"seed_{point}"] = program_ms(
-            lambda: ga._seed(r, offs, tk, mh))  # noqa: B023
-        rc, cc = ga._seed(r, offs, tk, mh)
-        out[f"extend_{point}"] = program_ms(
-            lambda: _xl_extend_core(r, ga.tiles, rc, cc, tk,  # noqa: B023
-                                    cfg.match_score, cfg.mismatch_penalty,
-                                    ga.halo))
+        seed = lambda: ga._seed(r, offs, tk, mh)  # noqa: B023, E731
+        out[f"seed_{point}"] = program_ms(seed)
+        out[f"seed_{point}_plain"] = program_ms(
+            lambda: seed_plain(tk, mh))  # noqa: B023
+        rc, cc = seed()
+        prc, pcc = seed_plain(tk, mh)
+        ext = lambda: _xl_extend_core(r, ga.tiles, rc, cc, tk,  # noqa: B023, E731
+                                      *score, ga.halo)
+        out[f"extend_{point}"] = program_ms(ext)
+        out[f"extend_{point}_plain"] = program_ms(
+            lambda: extend_plain(rc, cc, tk))  # noqa: B023
+        out[f"{point}_equal"] = {
+            "seed": bool(torch.equal(rc, prc) and torch.equal(cc, pcc)),
+            "extend": bool(torch.equal(ext(), extend_plain(rc, cc, tk)))}
     dev = torch.from_numpy(codes[:1 << 28]).cuda()
     out["index_build_2e28_bases"] = program_ms(
         lambda: build_shard_index_device(dev, ga.k, ga.k, ga.index_stride,
@@ -2290,7 +2648,7 @@ def phase_xl_path(tmpdir: str) -> dict:
            "reads": 2 * XL_PAIRS, "inputs_s": inputs_s,
            "expected": "ANCA--PRTB", "expected_breakpoint": break5,
            "partner_locus": w["genes"]["PRTB"].exons[0][0]}
-    captured = []
+    captured, xl_captured, sh_captured = [], [], []
     with capturing_sw(captured):
         align = cli_align_config(L)
         cfg = PipelineConfig(align=align, filter_false_positive=False)
@@ -2312,17 +2670,18 @@ def phase_xl_path(tmpdir: str) -> dict:
                                  "pos_div": tensor_bytes(ga.pos_div),
                                  "tiles": tensor_bytes(ga.tiles)},
               "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
-        for which in ("cold", "warm"):
-            xl[which] = _timed_call(pipe, anchor_codes, batch,
-                                    os.path.join(tmpdir, f"xl_{which}"),
-                                    break5)
-        before = sw_cuda.launches
-        t0 = time.time()
-        res = ga.align(reads)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        ok = recall_of(res, t_s, t_e)
-        wall, busy, events, top = profiled(lambda: ga.align(reads))
+        with capturing_anchor(xl_captured):
+            for which in ("cold", "warm"):
+                xl[which] = _timed_call(pipe, anchor_codes, batch,
+                                        os.path.join(tmpdir, f"xl_{which}"),
+                                        break5)
+            before = sw_cuda.launches
+            t0 = time.time()
+            res = ga.align(reads)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            ok = recall_of(res, t_s, t_e)
+            wall, busy, events, top = profiled(lambda: ga.align(reads))
         xl["xl_align"] = {
             "reads": XL_ALIGN_READS, "wall_s": dt,
             "reads_per_s": XL_ALIGN_READS / dt,
@@ -2333,7 +2692,15 @@ def phase_xl_path(tmpdir: str) -> dict:
                         "device_idle_share": (1.0 - busy / wall
                                               if busy is not None else None),
                         "device_events": events, "top_device_ms": top}}
-        xl["programs_ms"] = xl_programs(ga, codes, reads)
+        with uncounted():
+            xl["programs_ms"] = xl_programs(ga, codes, reads)
+            # the first batches of the genome kernels on this path, held
+            # equal to the plain versions and timed (the capture holds the
+            # index)
+            xl["anchor_check"] = check_anchor_batches(xl_captured)
+            xl["kernel_times"] = anchor_path_times(
+                xl_captured, "xl_path", keys=("seed_vote", "tiles"))
+        xl_captured.clear()
         del pipe, ga, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2355,7 +2722,8 @@ def phase_xl_path(tmpdir: str) -> dict:
                                                  ix.pos_sorted, seq_t)
                                     for ix, seq_t in ga.shards),
               "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
-        sh["programs_ms"] = sharded_programs(ga, reads)
+        with uncounted():
+            sh["programs_ms"] = sharded_programs(ga, reads)
         # at the CLI's point (H = 8) a k-mer keeps its 8 earliest positions
         # of ~15 in a shard, so reads late in a shard go unplaced; the call
         # is then made, and gated, at SHARDED_HITS
@@ -2363,14 +2731,15 @@ def phase_xl_path(tmpdir: str) -> dict:
             if tag == "wide_hits":
                 ga.cfg = dataclasses.replace(ga.cfg,
                                              max_hits_per_kmer=SHARDED_HITS)
-            sh[tag] = _timed_call(pipe, anchor_codes, batch,
-                                  os.path.join(tmpdir, f"sharded_{tag}"),
-                                  break5)
-            before = sw_cuda.launches
-            t0 = time.time()
-            res = ga.align(reads)
-            torch.cuda.synchronize()
-            dt = time.time() - t0
+            with capturing_anchor(sh_captured):
+                sh[tag] = _timed_call(pipe, anchor_codes, batch,
+                                      os.path.join(tmpdir, f"sharded_{tag}"),
+                                      break5)
+                before = sw_cuda.launches
+                t0 = time.time()
+                res = ga.align(reads)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
             ok = recall_of(res, t_s, t_e)
             frac = (t_s - ga.host_offs[np.searchsorted(
                 ga.host_offs, t_s, side="right") - 1]) / (L / ga.n_shards)
@@ -2387,6 +2756,9 @@ def phase_xl_path(tmpdir: str) -> dict:
         launches = sw_cuda.launches
         end_launches = sw_cuda.end_launches
         anchor_launches = anchor_counts()
+        with uncounted():
+            sh["anchor_check"] = check_anchor_batches(sh_captured)
+        sh_captured.clear()
         del pipe, ga, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2408,6 +2780,14 @@ def phase_xl_path(tmpdir: str) -> dict:
             problems.append(f"{name} recall {rate['recall_unique']}")
     if not launches or launches != len(captured):
         problems.append(f"{launches} SW launches, {len(captured)} captured")
+    missing = not_launched(anchor_launches, XL_KERNELS)
+    if missing or not (xl["anchor_check"]["equal"]
+                       and sh["anchor_check"]["equal"]):
+        problems.append(f"genome kernels not launched {missing} or unequal "
+                        "to their plain versions")
+    if not all(all(v.values()) for k, v in xl["programs_ms"].items()
+               if k.endswith("_equal")):
+        problems.append("XL programs: kernels != plain torch chain")
     if problems:
         raise AssertionError("xl_path: " + "; ".join(problems))
     return rec, captured, launches
@@ -2534,7 +2914,7 @@ def mesh_worker(art: dict) -> dict:
     from anchored_fusion_tpu_torch.annotate.exon_index import ExonIndex
     from anchored_fusion_tpu_torch.config import (
         AlignConfig, MeshConfig, PipelineConfig)
-    from anchored_fusion_tpu_torch.ops import anchor_cuda, sw_cuda
+    from anchored_fusion_tpu_torch.ops import sw_cuda
     from anchored_fusion_tpu_torch.ops.encode import encode_ascii
     from anchored_fusion_tpu_torch.parallel import distributed
     from anchored_fusion_tpu_torch.parallel.mesh import make_mesh
@@ -2570,7 +2950,7 @@ def mesh_worker(art: dict) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     sw_cuda.launches = sw_cuda.end_launches = 0
-    anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
+    reset_anchor_counts()
     t0 = time.time()
     res = pipe.call_gene(anchor.name, codes, batch, out_prefix=os.path.join(
         art["tmp"], f"mesh_rank{rank}"))
@@ -3175,7 +3555,8 @@ def main() -> int:
         emit({"phase": "device", "nvidia_smi": smi, "name": kind,
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        long_rows, anchor_kernel = run("kernel", phase_kernel)
+        long_rows, anchor_kernel, genome_kernel = run("kernel",
+                                                      phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
             run("parity", phase_parity, tmp)
             rec, captured, rerun, world = run("main_path", phase_main_path,
@@ -3223,6 +3604,8 @@ def main() -> int:
                                               sc_check, mesh, bench_check,
                                               head_check, long_rows)
         kernels += anchor_kernel_entries(anchor_kernel, rec, cli, sc,
+                                         engines, mesh, bench, head, xl)
+        kernels += genome_kernel_entries(genome_kernel, rec, cli, sc,
                                          engines, mesh, bench, head, xl)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
