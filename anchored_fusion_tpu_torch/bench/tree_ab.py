@@ -3,8 +3,9 @@
     python -m anchored_fusion_tpu_torch.bench.tree_ab --other OLD_TREE
 
 runs chip_smoke.py's ``main_path`` phase (``call_gene`` on its 100 Mbp
-genome and 1,000,000 pairs, then the same call again under the profiler)
-and the headline harness on chip_smoke.py's generated bench sample
+genome and 1,000,000 pairs, then the same call again under the profiler),
+its ``sc_path`` phase (``call_gene_cells`` on the same genome) and the
+headline harness on chip_smoke.py's generated bench sample
 (streamed and device-only anchored reads/s, no dp/mp scaling) from
 OLD_TREE and from this checkout, in turns old, new, new, old, each in a
 process of its own started in that checkout.  It prints one JSON line per
@@ -45,7 +46,12 @@ with tempfile.TemporaryDirectory() as d:
         "rescue_s": st["time.rescue_s"],
         "anchored_reads_per_s": rec["anchored_reads_per_s"],
         "profiled_call_s": wall, "device_busy_s": busy}
-    del rerun, world, captured
+    del rerun, captured
+    with contextlib.redirect_stdout(io.StringIO()):
+        sc = cs.phase_sc_path(d, world)[0]
+    out["sc_path"] = {"call_gene_cells_s": sc["call_gene_cells_s"],
+                      "anchor_align_s": sc["anchor_align_s"]}
+    del world, sc
     p = cs.wgsim_sample(d, seed=21)["paths"]
     rb = read_fastq_pair(p["fastq1"], p["fastq2"])
     seqs = rb.seq.reshape(-1, rb.max_len)

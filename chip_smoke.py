@@ -43,11 +43,13 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              both modes) at bench/seed_vote_bench.py's SHAPES — the XL
              pass-1 and rescue points on an hg38-size synthetic index, the
              flat engine's main-path chunk, the sharded engine at H 32 —
-             and EDGE_SHAPES — rows in global scratch, 2 rows, 1,001 rows,
-             a prefix table — and extend_fold's tile mode on the XL cases'
-             candidates over hg38-size tiles: every output equal, one
-             launch a case, kernel_ms, device_ms, plain_ms, the data's
-             bytes and sectors, bound_ms, and the yardstick: one
+             and EDGE_SHAPES — 1,024-wide rows, 2 rows, 1,001 rows, a
+             prefix table, a repeat-rich index whose rows mostly pass the
+             warp kernel, every slot valid (sorts in global scratch) — and
+             extend_fold's tile mode on the XL cases' candidates over
+             hg38-size tiles: every output equal, one launch a case,
+             kernel_ms, device_ms (both seeding kernels), plain_ms, the
+             data's bytes and sectors, bound_ms, and the yardstick: one
              torch.sort of the rows' int64 keys
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
              engine and on the XL and sharded engines (forced); the same for
@@ -508,10 +510,10 @@ def seed_vote_case(name: str, args: tuple, tile,
     rec = {"kind": name, "mode": "diag" if tile is None else "tile",
            "rows": N, "R": R, "k": k, "kb": kb, "stride": stride, "H": H,
            "top_k": top_k, "index_slots": args[3].numel(),
-           "plan": seed_vote_cuda.plan(N, Q, H), "equal": equal,
+           "plan": seed_vote_cuda.plan(N, Q, H, R), "equal": equal,
            "max_abs_err": err, "launches": launched,
            "kernel_ms": swb.time_ms(run, 20),
-           "device_ms": kernel_device_ms(run, "seed_vote_kernel"),
+           "device_ms": svb.device_ms(run),
            "plain_ms": swb.time_ms(
                lambda: seed_vote.seed_vote_plain(*args, tile=tile),
                plain_reps),
@@ -530,8 +532,9 @@ def seed_vote_kernel_cases() -> dict:
     """Hold the genome seeding kernel equal to its plain version at
     bench/seed_vote_bench.py's SHAPES (the XL pass-1 and rescue points, the
     flat engine's main-path chunk, the sharded engine at H 32) and
-    EDGE_SHAPES (rows in global scratch, 2 rows, an odd row count, a
-    prefix table), and the extension's tile mode on the XL cases' voted
+    EDGE_SHAPES (1,024-wide rows, 2 rows, an odd row count, a prefix
+    table, a repeat-rich index, every slot valid), and the extension's
+    tile mode on the XL cases' voted
     candidates over hg38-size tiles, edited so that some slots are empty,
     some columns negative and some rows the last; every output equal,
     every case one launch.  Returns the kernel phase's record."""
@@ -972,6 +975,11 @@ def genome_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
         if name == "seed_vote":
             x = xl["xl"]["kernel_times"]["seed_vote"]
             entry["library_call"] = "torch.sort, int64 keys, dim 1"
+            entry["design"] = (
+                "redesigned for Hopper: a warp a row (hits compacted by "
+                "ballots, sorted in registers and shuffles, vote and top-k "
+                "by warp reductions); rows past 256 hits a block each, "
+                "sorted in shared memory or global scratch")
             entry["sector_bound_ms"] = t["sector_bound_ms"]
             entry["xl_path_batch"] = {k: x[k] for k in (
                 *_TIME_KEYS, "sort_ms", "sector_bound_ms", "H", "top_k")}
