@@ -33,11 +33,9 @@ import torch
 
 from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.ops.encode import PAD, revcomp
-from anchored_fusion_tpu_torch.ops.diagonal import diag_match_counts_w
 from anchored_fusion_tpu_torch.ops import anchor_cuda
 from anchored_fusion_tpu_torch.ops.anchor import (
-    SeedPatch, block_max_plain, block_topk_plain, extend_segments,
-    pad_reference, seed_patch)
+    SeedPatch, block_max_plain, block_topk_plain, pad_reference, seed_patch)
 from anchored_fusion_tpu_torch.utils.device import resolve_device
 
 
@@ -136,14 +134,17 @@ def extend_diagonals_all(flat: torch.Tensor, ref: torch.Tensor,
       offs: (N, k) int32 candidate ref offsets of read position 0 per read
         (genome frame, i.e. NOT including the prepad).
     Returns dict of (N, k): score, start, end, matches, length — read-frame
-    coordinates of each candidate's best segment.
+    coordinates of each candidate's best segment.  The extension kernel's
+    segments mode on CUDA tensors (ops/anchor_cuda.py::extend_segments),
+    its plain version on CPU tensors.
     """
     R = flat.shape[1]
     # window for offset o covers genome [o, o+R) = ref[o+P : o+P+R]; R <= P
     # keeps every clipped window inside PAD
     if R > ref_prepad:
         raise ValueError(f"read width {R} exceeds ref_prepad {ref_prepad}")
-    return extend_segments(flat, ref, offs, ref_prepad, match, mismatch)
+    return anchor_cuda.extend_segments(flat, ref, ref_prepad, match,
+                                       mismatch, offs=offs.contiguous())
 
 
 def _block_topk_diagonals(counts: torch.Tensor, k: int,
@@ -194,17 +195,21 @@ class MultiHits:
     ref_end: np.ndarray    # (M,) int64
 
 
-def _align_multi_core(reads: torch.Tensor, seed_matrix: torch.Tensor,
+def _align_multi_core(reads: torch.Tensor, seed: SeedPatch,
                       refp: torch.Tensor, k: int, match: int,
                       mismatch: int, stride: int = 1) -> dict:
+    """Both-strand all-hits alignment against a small reference: the
+    (2B, min(k, D)) segments of each oriented read's top k diagonals by
+    bfloat16 match count (lower diagonal first on ties), with their
+    offsets ``off``.  Two launches, as _align_core: the seeding kernel's
+    top-k epilogue (each block's top k keys), then the extension kernel's
+    segments mode selecting the row's top k from them (plain versions on
+    the CPU)."""
     R = reads.shape[1]
     flat, _ = both_strands(reads)
-    counts = diag_match_counts_w(flat, seed_matrix, stride=stride)
-    _, idx = stable_topk(counts.to(torch.bfloat16).float(), k)
-    offs = idx.to(torch.int32) - (R - 1)
-    seg = extend_diagonals_all(flat, refp, offs, match, mismatch, R)
-    seg["off"] = offs
-    return seg
+    keys = anchor_cuda.seed_block_topk(flat, seed, stride, k)
+    return anchor_cuda.extend_segments(flat, refp, R, match, mismatch,
+                                       keys=keys, D=seed.diagonals, k=k)
 
 
 def to_numpy(seg: dict) -> dict:
@@ -289,9 +294,8 @@ def align_to_reference_multi(
         stride = cfg.seed_stride
     seed, refp = _seed_matrix_cached(ref_codes, R, stride, device)
     seg = to_numpy(_align_multi_core(
-        torch.from_numpy(seqs).to(device), seed.f32, refp, top_k,
-        cfg.match_score,
-        cfg.mismatch_penalty, stride))
+        torch.from_numpy(seqs).to(device), seed, refp, top_k,
+        cfg.match_score, cfg.mismatch_penalty, stride))
     return _flatten_multi(seg, read_lens, B, top_k, min_score, min_identity,
                           min_seg_len, R)
 

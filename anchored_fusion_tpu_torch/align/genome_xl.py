@@ -44,8 +44,9 @@ from anchored_fusion_tpu_torch.config import AlignConfig
 from anchored_fusion_tpu_torch.io.fasta import Reference
 from anchored_fusion_tpu_torch.index.kmer import (
     build_shard_index_device, merge_sorted_pieces, read_kmer_offsets)
-from anchored_fusion_tpu_torch.ops.anchor import TILE_FIELDS, tile_segments
-from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
+from anchored_fusion_tpu_torch.ops.anchor import TILE_FIELDS
+from anchored_fusion_tpu_torch.ops.anchor_cuda import (
+    extend_fold, extend_segments)
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.ops.seed_vote_cuda import seed_vote
 from anchored_fusion_tpu_torch.align.aligner import (
@@ -156,9 +157,11 @@ def _xl_extend_core(reads, tiles, rows_c, cols_c, top_k: int, match: int,
 def _xl_multi_extend_core(reads, tiles, rows_c, cols_c, match: int,
                           mismatch: int, halo: int) -> torch.Tensor:
     """All-hits extension: (7, 2B, top_k) int32 candidates (score, start,
-    end, matches, length, row, col)."""
+    end, matches, length, row, col), through the extension kernel's
+    segments mode over the tiles (ops/anchor_cuda.py::extend_segments)."""
     flat, _ = both_strands(reads)
-    seg = tile_segments(flat, tiles, rows_c, cols_c, halo, match, mismatch)
+    seg = extend_segments(flat, tiles, halo, match, mismatch, offs=cols_c,
+                          rows=rows_c)
     return torch.stack([seg["score"], seg["start"], seg["end"],
                         seg["matches"], seg["length"], rows_c,
                         cols_c]).to(torch.int32)

@@ -18,6 +18,22 @@
 //                   candidates whose windows are rows of the XL engine's
 //                   tiled genome, a row's base 64-bit.
 //
+// Two more modes serve the all-hits (multi-hit) programs:
+//   seed_block_topk  (seed_block_max's top-k epilogue) replaces the seeding
+//                   of align/aligner.py:460 _align_multi_core: the same
+//                   product, each 128-diagonal block's k largest keys
+//                   instead of its maximum.
+//   extend_segments  (extend_fold's segments mode) replaces
+//                   align/aligner.py:221 extend_diagonals_all as run by
+//                   align/genome.py:75 _genome_align_multi_core,
+//                   parallel/sharded_genome.py:315 _shard_multi,
+//                   align/aligner.py:468 (in _align_multi_core) and, over
+//                   the tiles, align/genome_xl.py:273 _xl_multi_extend_core:
+//                   every candidate's Kadane segment, no best-of-k and no
+//                   fold; for _align_multi_core its candidates are the
+//                   row's top k of those keys, selected by the block mode's
+//                   passes over nb * k keys.
+//
 // seed_block_max is bounded by int8 operations (2 * rows * Rs*4 * D), far
 // above its bytes.  It keeps the (rows, D) count matrix out of device
 // memory and runs the product on warpgroup MMAs (wgmma m64nNk32 s8 x s8 ->
@@ -49,6 +65,14 @@
 //     accumulators).  Lanes past D read zero one-hots (count 0, after every
 //     real lane of their block), so they never win, as the plain version's
 //     -1 never does.
+//   The top-k epilogue keeps, per thread, its (row, block) lists of the
+//   TK (8 or 16) largest keys in registers by branch-free insertion; a
+//   block's keys are distinct, so its top k lie in the union of its quad's
+//   lists, merged by k rounds of a quad maximum.  Lanes past D enter a
+//   list only after every real lane of their block (count 0, larger lane)
+//   and are written as -1.  Merging blocks' lists gives the row's top k
+//   under (count descending, diagonal ascending), lax.top_k's order: an
+//   entry of the row's top k is in its own block's.
 //   Strides other than 1 and 2 run as stride SN in {1, 2} over a read
 //   dilated by stride / SN (the skipped positions' one-hots are zero).
 //   The k-steps are compile-time (8, 16 or 20: 160 positions at most, the
@@ -69,7 +93,13 @@
 // the warp stages in shared memory word-major - lane l loads word l of
 // every window, coalesced, and each lane reads its own column without bank
 // conflicts - testing 4 codes a word with byte arithmetic.  Best, runner-up
-// and the strand fold are shuffle reductions in (score, rank) order.
+// and the strand fold are shuffle reductions in (score, rank) order.  The
+// selection ranks a candidate by one int64 (select_rank): block mode's
+// (maximum, -block), keys mode's (count, -diagonal).  The segments mode
+// keeps the lanes, the staging and the Kadane and writes every
+// candidate's segment (a repeated offset in its own slot), a row to a
+// group of L lanes with no strand pairs; it is bounded like the other
+// modes, by ~10 int32 operations a candidate position.
 // (Kadane as a warp-wide scan, 4 positions a lane, ran at 0.18 ms on
 // main_path's block-mode batch, and 4-lane scans at 0.12 ms: the scans'
 // extra instructions cost more than their shorter chains saved.)
@@ -96,6 +126,7 @@ constexpr int kStages = 4;             // shared-memory ring depth
 constexpr int kKC = 8;                 // k-steps a chunk (wide reads)
 constexpr int kFoldWarps = 8;          // reads a CTA of the extension
 constexpr int kMaxK = 128;             // candidates a row (ops/anchor_cuda.py MAX_K)
+constexpr int kMaxTopK = 16;           // keys a block of the top-k epilogue
 
 // The geometry of one instantiation: SN the stream stride (1 or 2), KS the
 // k-steps of 8 positions a stage (all of a read's, or a chunk's).
@@ -253,6 +284,63 @@ __device__ __forceinline__ void fold_keys(const int (&d)[32 / SN], int rt,
     for (int b = 0; b < 2; ++b) run[h][b] = max(run[h][b], m[h][b] - rt);
 }
 
+// The top-k epilogue's fold: every key of one stream's accumulators joins
+// its (row h, block) list of the TK largest keys this thread has seen, kept
+// in descending order by a branch-free insertion (compile-time indices, so
+// the lists stay in registers).  Keys of one block are distinct (distinct
+// lanes), so the block's top k are among the union of its 4 threads' lists.
+template <int SN, bool ROUND, int TK>
+__device__ __forceinline__ void fold_topk(const int (&d)[32 / SN], int rt,
+                                          int (&top)[2][2][TK]) {
+  constexpr int kS = 4 * SN, kJB = 4 / SN;
+#pragma unroll
+  for (int i = 0; i < 32 / SN; ++i) {
+    const int j = i >> 2, e = i & 1, h = (i >> 1) & 1, blk = j / kJB;
+    const int ct = 255 + 128 * blk - kS * (8 * j + e);
+    const int c = ROUND ? bf16_round(d[i]) : d[i];
+    int key = c * 256 + ct - rt;
+#pragma unroll
+    for (int x = 0; x < TK; ++x) {
+      const int hi = max(key, top[h][blk][x]);
+      key = min(key, top[h][blk][x]);
+      top[h][blk][x] = hi;
+    }
+  }
+}
+
+// The quad's lists -> the kout largest keys of rows r0 + 8h, blocks
+// 2*tile + b, in descending order: kout rounds of a quad maximum, the
+// thread whose head it is popping it.  A lane past D (a zero one-hot, so
+// count 0, after every real lane of its block) is written as -1.
+template <int TK>
+__device__ __forceinline__ void store_topk(int (&top)[2][2][TK], int r0,
+                                           int M, int tile, int nb, int D,
+                                           int kout, int t4,
+                                           int* __restrict__ keys) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int row = r0 + 8 * h, blk = 2 * tile + b;
+      const bool mine = t4 == 2 * h + b && row < M && blk < nb;
+      int* o = keys + (static_cast<size_t>(row) * nb + blk) * kout;
+      for (int r = 0; r < kout; ++r) {
+        int m = top[h][b][0];
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const bool pop = top[h][b][0] == m;
+#pragma unroll
+        for (int x = 0; x + 1 < TK; ++x)
+          top[h][b][x] = pop ? top[h][b][x + 1] : top[h][b][x];
+        top[h][b][TK - 1] = pop ? INT_MIN : top[h][b][TK - 1];
+        if (mine)
+          o[r] = kBlock * blk + 255 - (m & 255) < D ? m : -1;
+      }
+#pragma unroll
+      for (int x = 0; x < TK; ++x) top[h][b][x] = INT_MIN;
+    }
+}
+
 // The quad's keys -> bmax and lane of rows r0 + 8h, blocks 2*tile + b.
 __device__ __forceinline__ void store_keys(int (&run)[2][2], int r0, int M,
                                            int tile, int nb, int t4,
@@ -301,13 +389,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // of row y: the one-hot of reference position y - (R-1)); sd the dilation
 // (stride / SN); KSR the read's k-steps of 8 dilated positions (KS of them
 // a stage: all when CH is false, a chunk's when true); items of G groups of
-// at most TPG diagonal tiles a 128-row tile.  bmax, lane (M, nb) int32.
-template <int SN, bool CH, int KS>
+// at most TPG diagonal tiles a 128-row tile.  TK 0: bmax, lane (M, nb)
+// int32.  TK > 0 (the top-k epilogue): bmax is keys (M, nb, kout) int32,
+// each block's kout <= TK largest keys count * 256 + (255 - lane), -1 past
+// D; lane_out is not written.
+template <int SN, bool CH, int KS, int TK>
 __global__ void __launch_bounds__(kSeedThreads, 1)
 seed_block_max_kernel(const int8_t* __restrict__ codes, int M, int R, int sd,
                       int KSR, const int8_t* __restrict__ w8, int D, int Kp,
                       int nb, int G, int TPG, int* __restrict__ bmax,
-                      int* __restrict__ lane_out) {
+                      int* __restrict__ lane_out, int kout) {
   using C = SeedCfg<SN, KS>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -394,6 +485,10 @@ seed_block_max_kernel(const int8_t* __restrict__ codes, int M, int R, int sd,
   int stage = 0;
   uint32_t phase = 0;
   int run[2][2] = {{INT_MIN, INT_MIN}, {INT_MIN, INT_MIN}};
+  int top[2][2][TK > 0 ? TK : 1];
+#pragma unroll
+  for (int x = 0; x < (TK > 0 ? TK : 1); ++x)
+    top[0][0][x] = top[0][1][x] = top[1][0][x] = top[1][1][x] = INT_MIN;
   int8_t* mine = staged + wg * 64 * Rp;
   for (int it = blockIdx.x; it < nitems; it += gridDim.x) {
     const int rt = it / G, g = it % G;
@@ -463,7 +558,12 @@ seed_block_max_kernel(const int8_t* __restrict__ codes, int M, int R, int sd,
             wg_wait<0>();
           }
           pin(acc[rho & 1]);
-          fold_keys<SN, false>(acc[rho & 1], rho + 2 * C::kStreams * t4, run);
+          if constexpr (TK == 0)
+            fold_keys<SN, false>(acc[rho & 1], rho + 2 * C::kStreams * t4,
+                                 run);
+          else
+            fold_topk<SN, false, TK>(acc[rho & 1],
+                                     rho + 2 * C::kStreams * t4, top);
         }
         // every MMA reading the stage has completed in this warp
         if (lane == 0) mbar_arrive(empty + stage);
@@ -471,7 +571,10 @@ seed_block_max_kernel(const int8_t* __restrict__ codes, int M, int R, int sd,
           stage = 0;
           phase ^= 1;
         }
-        store_keys(run, r0, M, t, nb, t4, bmax, lane_out);
+        if constexpr (TK == 0)
+          store_keys(run, r0, M, t, nb, t4, bmax, lane_out);
+        else
+          store_topk<TK>(top, r0, M, t, nb, D, kout, t4, bmax);
       }
     } else {
       for (int t = t0; t < t1; ++t) {
@@ -533,9 +636,16 @@ seed_block_max_kernel(const int8_t* __restrict__ codes, int M, int R, int sd,
 #pragma unroll
         for (int rho = 0; rho < C::kStreams; ++rho) {
           pin(acc[rho]);
-          fold_keys<SN, true>(acc[rho], rho + 2 * C::kStreams * t4, run);
+          if constexpr (TK == 0)
+            fold_keys<SN, true>(acc[rho], rho + 2 * C::kStreams * t4, run);
+          else
+            fold_topk<SN, true, TK>(acc[rho], rho + 2 * C::kStreams * t4,
+                                    top);
         }
-        store_keys(run, r0, M, t, nb, t4, bmax, lane_out);
+        if constexpr (TK == 0)
+          store_keys(run, r0, M, t, nb, t4, bmax, lane_out);
+        else
+          store_topk<TK>(top, r0, M, t, nb, D, kout, t4, bmax);
       }
     }
   }
@@ -600,6 +710,19 @@ struct FoldSmem {
   int off[2 * kMaxK];     // the row groups' chosen blocks, then offsets
 };
 
+// A candidate's rank in a row's selection, as one int64 whose order is the
+// selection's: block mode (kt == 0), entry q the block maximum x of block
+// q, (x descending, q ascending); keys mode, entry q the key x of block
+// q / kt (count * 256 + 255 - lane, or -1), (count descending, diagonal
+// ascending), and -1 - q below every real key.
+__device__ __forceinline__ long long select_rank(int q, int x, int kt) {
+  constexpr long long kHi = 1LL << 32;
+  if (kt == 0) return static_cast<long long>(x) * kHi + (0x7fffffff - q);
+  if (x < 0) return -1LL - q;
+  const int diag = (q / kt) * kBlock + 255 - (x & 255);
+  return static_cast<long long>(x >> 8) * kHi + (0x7fffffff - diag);
+}
+
 // flat (2B, R) int8 oriented reads (forward half, then reverse); coord_off
 // (2B,) int32; refp (Lp,) int8 with `prepad` PAD codes before position 0.
 // Candidates: offs (2B, k) int32, or (offs == nullptr) the stable top-k
@@ -607,85 +730,90 @@ struct FoldSmem {
 // read_start, read_end, matches, length, second_score, ref_start, ref_end;
 // strand (B,) int8.  Tile mode (rows != nullptr): refp holds Lp / W tile
 // rows of W codes, candidate j is (rows[., j], offs[., j]) with `prepad`
-// the tiles' halo, and out is (10, B) (extend_fold_tiles_launch).  A lane a candidate: L lanes (a power of two, at most
-// 16, at or above the row's distinct candidates) a row, the read's two
-// rows side by side, 16 / L reads a warp;
-// grid ceil(B / (kFoldWarps * 16 / L)).
+// the tiles' halo, and out is (10, B) (extend_fold_tiles_launch).
+// Segments mode (seg_out != nullptr, extend_segments_launch): B counts
+// rows, each row its own group of L lanes (no strand pairs), and every
+// candidate's segment goes to seg_out (5 or 6, B, k) with no best-of-k and
+// no fold; its candidates are offs (offsets or tile mode) or, keys mode
+// (kt > 0), the row's top k of the seeding's keys bmax (B, nb * kt),
+// selected by block mode's passes.  A lane a candidate: L lanes (a power
+// of two, at most 16, at or above the row's distinct candidates) a row,
+// the read's two rows side by side, 16 / L reads a warp (32 / L rows in
+// segments mode); grid ceil(B / (kFoldWarps * 16 / L)) (32 / L).
 __global__ void __launch_bounds__(32 * kFoldWarps)
 extend_fold_kernel(const int8_t* __restrict__ flat,
                    const int* __restrict__ coord_off, int B, int R, int k,
                    int L, const int8_t* __restrict__ refp, long long Lp,
                    long long prepad, const int* __restrict__ offs,
                    const int* __restrict__ bmax,
-                   const int* __restrict__ lanes, int nb, int D, int match,
-                   int mismatch, int* __restrict__ out,
+                   const int* __restrict__ lanes, int nb, int kt, int D,
+                   int match, int mismatch, int* __restrict__ out,
                    int8_t* __restrict__ strand,
-                   const int* __restrict__ rows, long long W) {
+                   const int* __restrict__ rows, long long W,
+                   int* __restrict__ seg_out) {
   __shared__ FoldSmem sm[kFoldWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool segs = seg_out != nullptr;
   // a row's kk distinct candidates (block mode: ranks past the blocks
   // repeat the last, and only reach the runner-up)
-  const int kk = offs != nullptr ? k : min(k, nb);
+  const int kk = offs != nullptr || kt > 0 ? k : min(k, nb);
   const int rg = lane / L, gl = lane & (L - 1);  // row group, lane in it
   const int h = rg & 1;
-  const int rpw = 16 / L;                        // reads a warp
+  const int rpw = segs ? 32 / L : 16 / L;        // rows or reads a warp
   const int b0 = (blockIdx.x * kFoldWarps + warp) * rpw;
   if (b0 >= B) return;
-  const int b = b0 + (rg >> 1);
+  const int b = b0 + (segs ? rg : rg >> 1);
   const bool live = b < B;
-  const size_t row = static_cast<size_t>(h) * B + (live ? b : B - 1);
+  const size_t row = (segs ? 0 : static_cast<size_t>(h) * B) +
+                     (live ? b : B - 1);
   FoldSmem& S = sm[warp];
   int* offw = S.off + rg * kk;  // (32 / L) * kk <= 2 * kMaxK
 
   if (offs == nullptr) {
-    // the stable top-k of the row: pass j takes the first maximum among
-    // the blocks after (pv, pb) in the order (maximum descending, block
-    // ascending), by the row's L lanes; 16 maxima a lane stay in registers
-    const int* v = bmax + row * nb;
-    const int nc = min(16, (nb - gl + L - 1) / L);  // cached a lane
-    int cache[16];
+    // the stable top-k of the row: pass j takes the largest rank below the
+    // last pass's among the row's ne entries (block maxima, or kt keys a
+    // block), by the row's L lanes; 16 ranks a lane stay in registers, the
+    // rest are read again each pass (read 8 at a time, the kernel took 76
+    // registers, not 62, and block mode ran 2-6% slower)
+    const int ne = kt > 0 ? nb * kt : nb;
+    const int* v = bmax + row * ne;
+    long long cache[16];
+    const int nc = min(16, (ne - gl + L - 1) / L);  // cached a lane
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       if (i >= nc) break;
-      cache[i] = __ldg(v + gl + L * i);
+      cache[i] = select_rank(gl + L * i, __ldg(v + gl + L * i), kt);
     }
-    int pv = INT_MAX, pb = -1;
+    long long ps = LLONG_MAX;
     for (int j = 0; j < kk; ++j) {
-      int cv = INT_MIN, cq = INT_MAX;
+      long long cs = LLONG_MIN;
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         if (i >= nc) break;
-        const int q = gl + L * i, x = cache[i];
-        if ((x < pv || (x == pv && q > pb)) && x > cv) {
-          cv = x;
-          cq = q;
-        }
+        const long long x = cache[i];
+        cs = x < ps && x > cs ? x : cs;
       }
-      for (int q = gl + 16 * L; q < nb; q += L) {
-        const int x = __ldg(v + q);
-        if ((x < pv || (x == pv && q > pb)) && x > cv) {
-          cv = x;
-          cq = q;
-        }
+      for (int q = gl + 16 * L; q < ne; q += L) {
+        const long long x = select_rank(q, __ldg(v + q), kt);
+        cs = x < ps && x > cs ? x : cs;
       }
       for (int o = 1; o < L; o <<= 1) {
-        const int ov = __shfl_xor_sync(0xffffffffu, cv, o);
-        const int oq = __shfl_xor_sync(0xffffffffu, cq, o);
-        if (ov > cv || (ov == cv && oq < cq)) {
-          cv = ov;
-          cq = oq;
-        }
+        const long long x = __shfl_xor_sync(0xffffffffu, cs, o);
+        cs = x > cs ? x : cs;
       }
-      pv = cv;
-      pb = cq;
-      if (gl == 0) offw[j] = pb;
+      ps = cs;
+      // block mode: the block; keys mode: the diagonal's offset
+      const int lo = 0x7fffffff - static_cast<int>(cs & 0x7fffffffLL);
+      if (gl == 0) offw[j] = kt > 0 ? lo - (R - 1) : lo;
     }
     __syncwarp();
-    // the chosen blocks' lanes, loaded together
-    for (int j = gl; j < kk; j += L) {
-      const int blk = offw[j];
-      offw[j] = min(blk * kBlock + __ldg(lanes + row * nb + blk), D - 1) -
-                (R - 1);
+    if (kt == 0) {
+      // the chosen blocks' lanes, loaded together
+      for (int j = gl; j < kk; j += L) {
+        const int blk = offw[j];
+        offw[j] = min(blk * kBlock + __ldg(lanes + row * nb + blk), D - 1) -
+                  (R - 1);
+      }
     }
   } else {
     for (int j = gl; j < k; j += L) offw[j] = __ldg(offs + row * k + j);
@@ -693,7 +821,7 @@ extend_fold_kernel(const int8_t* __restrict__ flat,
   __syncwarp();
 
   const int8_t* rd = flat + row * R;
-  const int8_t* flat_end = flat + static_cast<size_t>(2) * B * R;
+  const int8_t* flat_end = flat + static_cast<size_t>(segs ? 1 : 2) * B * R;
   const bool aligned = ((reinterpret_cast<uintptr_t>(flat) | R) & 3) == 0;
   const int gain = match + mismatch;  // a match's score over a mismatch's
   const int8_t* ref_end = refp + Lp;
@@ -785,9 +913,23 @@ extend_fold_kernel(const int8_t* __restrict__ flat,
         }
       }
     }
+    if (segs) {
+      if (act && live) {
+        const size_t nk = static_cast<size_t>(B) * k;
+        int* o = seg_out + row * k + j;
+        o[0] = sg.score;
+        o[nk] = sg.start;
+        o[2 * nk] = sg.end;
+        o[3 * nk] = sg.matches;
+        o[4 * nk] = max(sg.end - sg.start + 1, 0);
+        if (kt > 0) o[5 * nk] = off;
+      }
+      continue;
+    }
     if (act) mine = merge_best(mine, Best{sg, off, j, INT_MIN});
     if (j == kk - 1) last = sg.score;
   }
+  if (segs) return;
   // the row's best and runner-up over its L lanes (with the repeats of
   // rank kk - 1), then the strand fold with the other row of the read
   // (lane ^ L)
@@ -910,16 +1052,25 @@ struct SeedLaunch {
   const int8_t* w8;
   int D, Kp, nb;
   int *bmax, *lane;
+  int kout;  // 0: block max; else the top-k epilogue's keys a block
   cudaStream_t stream;
-  template <int SN, bool CH, int KS>
-  cudaError_t run() {
-    auto kernel = seed_block_max_kernel<SN, CH, KS>;
+  template <int SN, bool CH, int KS, int TK>
+  cudaError_t go() {
+    auto kernel = seed_block_max_kernel<SN, CH, KS, TK>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return err;
     kernel<<<p.grid, kSeedThreads, p.smem, stream>>>(
-        codes, M, R, p.sd, p.KSR, w8, D, Kp, nb, p.G, p.TPG, bmax, lane);
+        codes, M, R, p.sd, p.KSR, w8, D, Kp, nb, p.G, p.TPG, bmax, lane,
+        kout);
     return cudaGetLastError();
+  }
+  // the epilogue: the block max, or top-k lists of 8 or 16 keys a thread
+  template <int SN, bool CH, int KS>
+  cudaError_t run() {
+    if (kout == 0) return go<SN, CH, KS, 0>();
+    if (kout <= 8) return go<SN, CH, KS, 8>();
+    return go<SN, CH, KS, 16>();
   }
 };
 
@@ -932,7 +1083,24 @@ extern "C" int seed_block_max_launch(const void* codes, int M, int R,
   const SeedPlan p = seed_plan(M, R, stride, Rs, D, sm_count());
   SeedLaunch l{p, static_cast<const int8_t*>(codes), M, R,
                static_cast<const int8_t*>(w8), D, Kp, nb,
-               static_cast<int*>(bmax), static_cast<int*>(lane),
+               static_cast<int*>(bmax), static_cast<int*>(lane), 0,
+               static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(seed_dispatch(p, l));
+}
+
+// The top-k epilogue (the all-hits seeding of align/aligner.py
+// _align_multi_core): keys (M, nb, k) int32, each 128-diagonal block's k
+// largest keys count * 256 + (255 - lane) in descending order, -1 past D;
+// 1 <= k <= kMaxTopK.
+extern "C" int seed_block_topk_launch(const void* codes, int M, int R,
+                                      int stride, int Rs, const void* w8,
+                                      int D, int Kp, int nb, int k,
+                                      void* keys, void* stream) {
+  if (k < 1 || k > kMaxTopK) return static_cast<int>(cudaErrorInvalidValue);
+  const SeedPlan p = seed_plan(M, R, stride, Rs, D, sm_count());
+  SeedLaunch l{p, static_cast<const int8_t*>(codes), M, R,
+               static_cast<const int8_t*>(w8), D, Kp, nb,
+               static_cast<int*>(keys), nullptr, k,
                static_cast<cudaStream_t>(stream)};
   return static_cast<int>(seed_dispatch(p, l));
 }
@@ -965,8 +1133,9 @@ extern "C" int extend_fold_launch(const void* flat, const void* coord_off,
       static_cast<const int8_t*>(flat), static_cast<const int*>(coord_off), B,
       R, k, L, static_cast<const int8_t*>(refp), Lp, prepad,
       static_cast<const int*>(offs), static_cast<const int*>(bmax),
-      static_cast<const int*>(lane), nb, D, match, mismatch,
-      static_cast<int*>(out), static_cast<int8_t*>(strand), nullptr, 0);
+      static_cast<const int*>(lane), nb, 0, D, match, mismatch,
+      static_cast<int*>(out), static_cast<int8_t*>(strand), nullptr, 0,
+      nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -989,7 +1158,42 @@ extern "C" int extend_fold_tiles_launch(const void* flat,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(flat), static_cast<const int*>(coord_off), B,
       R, k, L, static_cast<const int8_t*>(tiles), total, halo,
-      static_cast<const int*>(cols), nullptr, nullptr, 0, 0, match, mismatch,
-      static_cast<int*>(out), nullptr, static_cast<const int*>(rows), W);
+      static_cast<const int*>(cols), nullptr, nullptr, 0, 0, 0, match,
+      mismatch, static_cast<int*>(out), nullptr,
+      static_cast<const int*>(rows), W, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Segments mode (the all-hits extensions): the Kadane maximal segment of
+// each of the k candidates of N rows, no best-of-k and no strand fold; out
+// (5, N, k) int32 score, start, end, matches, length, and in keys mode a
+// sixth row, the candidate's offset.  Candidates, as in the other modes:
+//   offsets  offs (N, k), windows refp[clamp(o + prepad, 0, Lp - R) : +R];
+//   tiles    rows and offs (N, k) (row, col) of the tiles refp (Lp = their
+//            total, W a row's width), windows as extend_fold_tiles_launch's;
+//   keys     (offs and rows null) the row's k diagonals of largest (count,
+//            -diagonal) from seed_block_topk_launch's keys (N, nb, kt)
+//            over D diagonals (k <= min(kt, D)), offset diagonal - (R - 1).
+extern "C" int extend_segments_launch(const void* flat, int N, int R, int k,
+                                      const void* refp, long long Lp,
+                                      long long prepad, const void* offs,
+                                      const void* rows, long long W,
+                                      const void* keys, int nb, int kt,
+                                      int D, int match, int mismatch,
+                                      void* out, void* stream) {
+  if (offs == nullptr && (keys == nullptr || kt < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (offs == nullptr && k > kMaxTopK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int L = 1;
+  while (L < k && L < 16) L <<= 1;
+  const int per = kFoldWarps * (32 / L);
+  extend_fold_kernel<<<(N + per - 1) / per, 32 * kFoldWarps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(flat), nullptr, N, R, k, L,
+      static_cast<const int8_t*>(refp), Lp, prepad,
+      static_cast<const int*>(offs), static_cast<const int*>(keys), nullptr,
+      nb, offs != nullptr ? 0 : kt, D, match, mismatch, nullptr, nullptr,
+      static_cast<const int*>(rows), W, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

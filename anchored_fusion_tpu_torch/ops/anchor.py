@@ -5,7 +5,9 @@ aligner.
 - ``seed_block_max_plain``: the match count of every (read, diagonal) as
   the one-hot product (ops/diagonal.py), rounded through bfloat16, then for
   each 128-diagonal block its maximum and the first lane holding it; lanes
-  past the last diagonal count as -1.
+  past the last diagonal count as -1.  ``seed_block_topk_plain`` (the
+  seeding's top-k epilogue) keeps each block's k largest keys instead, and
+  ``select_topk_plain`` merges them into the row's top k diagonals.
 - ``extend_fold_plain``: for each oriented read k candidate offsets — the
   stable top-k of the block maxima (block mode) or given (offsets mode) —
   a window of the PAD-extended reference, the Kadane maximal segment
@@ -14,10 +16,17 @@ aligner.
   candidates are (row, col) pairs of the tiled genome and the windows are
   rows of the tiles.
 
+- ``extend_segments_plain``: the extension's segments mode — the Kadane
+  segment of every candidate (``offset_segments`` over a PAD-extended
+  reference, ``tile_segments`` over the tiles, or the candidates selected
+  from the top-k keys), with no best-of-k and no fold.
+
 These are the JAX package's ``_block_topk_diagonals``,
 ``extend_diagonals`` and ``fold_strands`` (align/aligner.py), and
 ``_xl_extend_core`` (align/genome_xl.py), split where the kernels split
-them; tie order is kept: top-k keeps the lower index, the best is the first
+them, and the all-hits programs' ``extend_diagonals_all``, ``lax.top_k``
+of bfloat16 counts (``_align_multi_core``) and ``_xl_multi_extend_core``;
+tie order is kept: top-k keeps the lower index, the best is the first
 maximum, the reverse strand wins only when strictly better.
 """
 
@@ -36,6 +45,7 @@ from anchored_fusion_tpu_torch.ops.encode import PAD
 
 BLOCK = 128     # diagonals per block of the two-level top-k
 K_CHUNK = 128   # the int8 patch matrix's k padding: 32 positions
+SEGMENT_FIELDS = ("score", "start", "end", "matches", "length")
 # The tile mode's record rows: genome_xl.py's XL_FIELDS; the host folds
 # ``ref = row * C + col`` in int64.
 TILE_FIELDS = ("score", "strand", "read_start", "read_end", "matches",
@@ -121,7 +131,62 @@ def seed_block_max_plain(flat: torch.Tensor, seed_matrix: torch.Tensor,
                                                stride=stride))
 
 
-def extend_segments(flat: torch.Tensor, refp: torch.Tensor,
+def block_topk_keys(counts: torch.Tensor, k: int,
+                    block: int = BLOCK) -> torch.Tensor:
+    """(N, D) counts -> (N, nb, k) int32: each 128-diagonal block's k
+    largest keys ``count * 256 + (255 - lane)``, counts rounded through
+    bfloat16, in descending order; -1 where the block has fewer than k
+    lanes before D."""
+    N, D = counts.shape
+    nb = -(-D // block)
+    c = counts.to(torch.bfloat16).to(torch.int32)
+    lane = torch.arange(block, dtype=torch.int32, device=counts.device)
+    key = torch.full((N, nb * block), -1, dtype=torch.int32,
+                     device=counts.device)
+    key[:, :D] = c * 256 + (255 - lane.repeat(nb)[:D])
+    key = key.reshape(N, nb, block)
+    return torch.sort(key, dim=-1, descending=True).values[..., :k]
+
+
+def seed_block_topk_plain(flat: torch.Tensor, seed_matrix: torch.Tensor,
+                          stride: int, k: int) -> torch.Tensor:
+    """(2B, R) oriented reads, the float32 patch matrix -> (2B, nb, k) int32
+    per-block top-k keys (block_topk_keys)."""
+    return block_topk_keys(diag_match_counts_w(flat, seed_matrix,
+                                               stride=stride), k)
+
+
+def select_topk_plain(keys: torch.Tensor, k: int, D: int) -> torch.Tensor:
+    """(N, nb, kt) per-block top-k keys -> (N, min(k, D)) int32 diagonals:
+    the row's top k in (count descending, diagonal ascending) order, which
+    is ``stable_topk`` of the bfloat16 counts (lax.top_k: the lower index
+    first on ties).
+
+    Merging per-block lists gives the row's top k because the order is
+    total (no two diagonals tie): an entry of the row's top k has fewer
+    than k entries before it in the row, so fewer than k in its own block,
+    so it is in its block's top k.  Inside a block the order is (count
+    descending, lane ascending), which is the key's descending order, so
+    each list holds exactly its block's top k; kt >= min(k, 128) keeps
+    every needed entry (a block holds 128).  (The key alone does not order
+    two blocks: an equal count at a lower lane of a later block has the
+    larger key.)
+    """
+    N, nb, kt = keys.shape
+    kk = min(k, D)
+    if min(kk, BLOCK) > kt:
+        raise ValueError(f"{kt} keys a block cannot give the top {kk}")
+    keys = keys.long()
+    q = torch.arange(nb * kt, device=keys.device).reshape(nb, kt)
+    diag = (q // kt) * BLOCK + 255 - (keys & 255)
+    rank = torch.where(keys >= 0, (keys >> 8) * 2 ** 32 + (2 ** 31 - 1 - diag),
+                       -1 - q)
+    order = torch.sort(rank.reshape(N, -1), dim=1, descending=True).indices
+    return torch.gather(diag.reshape(N, -1), 1,
+                        order[:, :kk]).to(torch.int32)
+
+
+def offset_segments(flat: torch.Tensor, refp: torch.Tensor,
                     offs: torch.Tensor, prepad: int, match: int,
                     mismatch: int) -> dict:
     """The Kadane maximal segment of every candidate: (N, R) reads, (N, k)
@@ -146,7 +211,7 @@ def window_segments(flat: torch.Tensor, win: torch.Tensor, match: int,
 def tile_segments(flat: torch.Tensor, tiles: torch.Tensor,
                   rows: torch.Tensor, cols: torch.Tensor, halo: int,
                   match: int, mismatch: int) -> dict:
-    """extend_segments over a tiled genome: the window of candidate (row,
+    """offset_segments over a tiled genome: the window of candidate (row,
     col) is ``tiles[row, clamp(col + halo, 0, W - R) : ... + R]``."""
     R = flat.shape[1]
     start = torch.clamp(cols + halo, 0, tiles.shape[1] - R)
@@ -154,6 +219,34 @@ def tile_segments(flat: torch.Tensor, tiles: torch.Tensor,
                                           device=flat.device)
     win = tiles[rows.long()[..., None], idx.long()]          # (N, k, R)
     return window_segments(flat, win, match, mismatch)
+
+
+def extend_segments_plain(flat: torch.Tensor, refp: torch.Tensor,
+                          prepad: int, match: int, mismatch: int,
+                          offs: Optional[torch.Tensor] = None,
+                          rows: Optional[torch.Tensor] = None,
+                          keys: Optional[torch.Tensor] = None,
+                          D: Optional[int] = None,
+                          k: Optional[int] = None) -> dict:
+    """The extension's segments mode: dict of (N, k) SEGMENT_FIELDS, the
+    Kadane segment of every candidate of (N, R) reads.
+
+    Offsets mode (``offs``): windows ``refp[clamp(o + prepad, 0, len(refp)
+    - R) : ... + R]``.  Tile mode (``rows`` and ``offs``, the columns):
+    windows of the (T+1, W) tiles ``refp``, ``prepad`` their halo.  Keys
+    mode (``keys`` (N, nb, kt) from the seeding's top-k epilogue, ``D``,
+    ``k``): the candidates are the row's top min(k, D) diagonals
+    (select_topk_plain) at offset ``diagonal - (R - 1)``, returned as
+    ``off`` beside the fields.
+    """
+    if rows is not None:
+        return tile_segments(flat, refp, rows, offs, prepad, match, mismatch)
+    if offs is not None:
+        return offset_segments(flat, refp, offs, prepad, match, mismatch)
+    off = select_topk_plain(keys, k, D) - (flat.shape[1] - 1)
+    seg = offset_segments(flat, refp, off, prepad, match, mismatch)
+    seg["off"] = off
+    return seg
 
 
 def best_of_k(seg: dict, offs: torch.Tensor,
@@ -236,5 +329,5 @@ def extend_fold_plain(flat: torch.Tensor, coord_off: torch.Tensor,
         return {f: rec[f].to(torch.int32) for f in TILE_FIELDS}
     if offs is None:
         offs = block_topk_plain(bmax, lane, k, D) - (R - 1)
-    seg = extend_segments(flat, refp, offs, prepad, match, mismatch)
+    seg = offset_segments(flat, refp, offs, prepad, match, mismatch)
     return fold_strands(best_of_k(seg, offs), N // 2, coord_off)

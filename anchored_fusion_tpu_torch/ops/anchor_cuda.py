@@ -9,6 +9,12 @@
   strand fold: the nine per-read record fields; in tile mode (the XL
   engine) given (row, col) candidates of a tiled genome and the ten
   TILE_FIELDS rows.
+- ``seed_block_topk`` (the seeding kernel's top-k epilogue) and
+  ``extend_segments`` (the extension kernel's segments mode): the
+  all-hits programs — each 128-diagonal block's top-k keys, (2B, nb, k)
+  int32, and the Kadane segment of every candidate with no best-of-k and
+  no fold, (N, k) int32 fields, its candidates given offsets, (row, col)
+  tile candidates, or the row's top k of those keys.
 
 A tensor on the CPU goes to the plain version (ops/anchor.py); a CUDA
 tensor launches the kernel, which is built at first use with ``nvcc`` for
@@ -27,11 +33,13 @@ import torch
 
 from anchored_fusion_tpu_torch.ops import cuda_build
 from anchored_fusion_tpu_torch.ops.anchor import (
-    BLOCK, K_CHUNK, TILE_FIELDS, SeedPatch, extend_fold_plain,
-    seed_block_max_plain)
+    BLOCK, K_CHUNK, SEGMENT_FIELDS, TILE_FIELDS, SeedPatch,
+    extend_fold_plain, extend_segments_plain, seed_block_max_plain,
+    seed_block_topk_plain)
 
 SOURCE = os.path.join(cuda_build.CSRC, "anchor.cu")
 MAX_K = 128             # candidates a row: the extension's offset table
+MAX_TOPK = 16           # keys a block of the seeding's top-k epilogue
 MAX_ROWS = 65535 * 128  # rows a seeding launch takes
 
 _lib = None
@@ -40,6 +48,8 @@ _lib = None
 seed_launches = 0       # seed_block_max_cuda
 fold_launches = 0       # extend_fold_cuda, block and offsets modes
 tile_launches = 0       # extend_fold_cuda, tile mode
+topk_launches = 0       # seed_block_topk_cuda
+segment_launches = 0    # extend_segments_cuda, every candidate source
 
 
 def build() -> str:
@@ -53,7 +63,8 @@ def ptxas_usage() -> list[dict]:
     out = []
     for e in cuda_build.ptxas_report(SOURCE, "anchor"):
         m = re.search(r"(seed_block_max_kernel|extend_fold_kernel)"
-                      r"(?:ILi(\d+)ELb([01])ELi(\d+)E)?", e["entry"])
+                      r"(?:ILi(\d+)ELb([01])ELi(\d+)E(?:Li(\d+)E)?)?",
+                      e["entry"])
         if not m:
             continue
         cur = {"kernel": m.group(1)}
@@ -61,6 +72,7 @@ def ptxas_usage() -> list[dict]:
             cur["stream_stride"] = int(m.group(2))
             cur["chunked"] = m.group(3) == "1"
             cur["stage_steps"] = int(m.group(4))
+            cur["topk_list"] = int(m.group(5) or 0)
         out.append({**cur, **{k: v for k, v in e.items() if k != "entry"}})
     return out
 
@@ -83,7 +95,8 @@ def seed_plan(M: int, R: int, stride: int, D: int) -> dict:
 
 def bind(lib):
     """Set the argument types of a built anchor library's C entries (the
-    plan and tile-mode entries only where the source has them)."""
+    plan, tile-mode, top-k and segments entries only where the source has
+    them)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.seed_block_max_launch.restype = i32
     lib.seed_block_max_launch.argtypes = [ptr, *[i32] * 4, ptr,
@@ -97,6 +110,15 @@ def bind(lib):
         lib.extend_fold_tiles_launch.argtypes = [ptr, ptr, *[i32] * 3, ptr,
                                                  i64, i64, i64, ptr, ptr,
                                                  i32, i32, ptr, ptr]
+    if hasattr(lib, "seed_block_topk_launch"):
+        lib.seed_block_topk_launch.restype = i32
+        lib.seed_block_topk_launch.argtypes = [ptr, *[i32] * 4, ptr,
+                                               *[i32] * 4, ptr, ptr]
+    if hasattr(lib, "extend_segments_launch"):
+        lib.extend_segments_launch.restype = i32
+        lib.extend_segments_launch.argtypes = [ptr, *[i32] * 3, ptr, i64,
+                                               i64, ptr, ptr, i64, ptr,
+                                               *[i32] * 5, ptr, ptr]
     if hasattr(lib, "seed_block_max_plan"):
         lib.seed_block_max_plan.restype = i32
         lib.seed_block_max_plan.argtypes = [*[i32] * 5, ptr]
@@ -130,10 +152,8 @@ def _run(fn: str, args, device: torch.device) -> None:
         raise RuntimeError(f"{fn} failed: cudaError {err}")
 
 
-def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
-                        stride: int = 1):
-    """Launch the seeding kernel on the current stream; (bmax, lane)."""
-    global seed_launches
+def _check_seed(flat: torch.Tensor, seed: SeedPatch, stride: int) -> int:
+    """The seeding kernel's input checks; the patch matrix's block count."""
     _require("flat", flat, torch.int8, 2, flat.device)
     _require("seed.i8", seed.i8, torch.int8, 2, flat.device)
     M, R = flat.shape
@@ -147,6 +167,16 @@ def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
                          f"padded transpose of a ({4 * Rs}, {D}) matrix")
     if M > MAX_ROWS or R * 256 >= 2 ** 31:
         raise ValueError(f"{M} rows of width {R} exceed the kernel's grid")
+    return nb
+
+
+def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
+                        stride: int = 1):
+    """Launch the seeding kernel on the current stream; (bmax, lane)."""
+    global seed_launches
+    nb = _check_seed(flat, seed, stride)
+    M, R = flat.shape
+    D, Rs = seed.diagonals, seed.positions
     bmax = torch.empty((M, nb), dtype=torch.int32, device=flat.device)
     lane = torch.empty((M, nb), dtype=torch.int32, device=flat.device)
     if M:
@@ -156,6 +186,89 @@ def seed_block_max_cuda(flat: torch.Tensor, seed: SeedPatch,
              flat.device)
         seed_launches += 1
     return bmax, lane
+
+
+def seed_block_topk_cuda(flat: torch.Tensor, seed: SeedPatch, stride: int,
+                         k: int) -> torch.Tensor:
+    """Launch the seeding kernel with its top-k epilogue on the current
+    stream; keys (M, nb, k) int32 (ops/anchor.py::block_topk_keys)."""
+    global topk_launches
+    if not 1 <= k <= MAX_TOPK:
+        # the epilogue's lists are registers
+        raise ValueError(f"k = {k} outside 1..{MAX_TOPK}")
+    nb = _check_seed(flat, seed, stride)
+    M, R = flat.shape
+    keys = torch.empty((M, nb, k), dtype=torch.int32, device=flat.device)
+    if M:
+        _run("seed_block_topk_launch",
+             (flat.data_ptr(), M, R, stride, seed.positions,
+              seed.i8.data_ptr(), seed.diagonals, seed.i8.shape[1], nb, k,
+              keys.data_ptr()), flat.device)
+        topk_launches += 1
+    return keys
+
+
+def extend_segments_cuda(flat: torch.Tensor, refp: torch.Tensor,
+                         prepad: int, match: int, mismatch: int,
+                         offs: Optional[torch.Tensor] = None,
+                         rows: Optional[torch.Tensor] = None,
+                         keys: Optional[torch.Tensor] = None,
+                         D: Optional[int] = None,
+                         k: Optional[int] = None) -> dict:
+    """Launch the extension kernel's segments mode on the current stream;
+    the fields of ops/anchor.py::extend_segments_plain (keys mode: and
+    ``off``)."""
+    global segment_launches
+    dev = flat.device
+    _require("flat", flat, torch.int8, 2, dev)
+    N, R = flat.shape
+    if rows is not None:
+        if offs is None:
+            raise ValueError("tile mode takes rows and offs (the columns)")
+        _require("tiles", refp, torch.int8, 2, dev)
+        W = refp.shape[1]
+        for name, t in (("rows", rows), ("cols", offs)):
+            _require(name, t, torch.int32, 2, dev)
+            if tuple(t.shape) != tuple(rows.shape) or t.shape[0] != N:
+                raise ValueError(f"{name} shape {tuple(t.shape)} is not "
+                                 f"({N}, k)")
+    else:
+        _require("refp", refp, torch.int8, 1, dev)
+        W = 0
+    if R > (W if rows is not None else refp.shape[0]):
+        raise ValueError(f"read width {R} exceeds the reference's row of "
+                         f"{W if rows is not None else refp.shape[0]} codes")
+    nb = kt = 0
+    if offs is not None:
+        _require("offs", offs, torch.int32, 2, dev)
+        if offs.shape[0] != N:
+            raise ValueError(f"offs shape {tuple(offs.shape)} is not "
+                             f"({N}, k)")
+        k = offs.shape[1]
+        ptrs = (offs.data_ptr(), None if rows is None else rows.data_ptr(),
+                None)
+    else:
+        _require("keys", keys, torch.int32, 3, dev)
+        nb, kt = keys.shape[1], keys.shape[2]
+        if keys.shape[0] != N or D is None or nb != -(-D // BLOCK):
+            raise ValueError("keys must be (N, ceil(D / 128), kt)")
+        if k is None or k < 1 or min(k, D) > kt or kt > MAX_TOPK:
+            raise ValueError(f"top {k} of {kt} keys a block (at most "
+                             f"{MAX_TOPK})")
+        k = min(k, D)
+        ptrs = (None, None, keys.data_ptr())
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k = {k} outside 1..{MAX_K}")
+    fields = SEGMENT_FIELDS + (("off",) if keys is not None and offs is None
+                               else ())
+    out = torch.empty((len(fields), N, k), dtype=torch.int32, device=dev)
+    if N:
+        _run("extend_segments_launch",
+             (flat.data_ptr(), N, R, k, refp.data_ptr(), refp.numel(),
+              prepad, ptrs[0], ptrs[1], W, ptrs[2], nb, kt, D or 0, match,
+              mismatch, out.data_ptr()), dev)
+        segment_launches += 1
+    return dict(zip(fields, out))
 
 
 def _extend_fold_tiles_cuda(flat, coord_off, tiles, halo, match, mismatch,
@@ -244,6 +357,43 @@ def seed_block_max(flat: torch.Tensor, seed: SeedPatch, stride: int = 1):
     if flat.is_cuda:
         return seed_block_max_cuda(flat, seed, stride)
     return seed_block_max_plain(flat, seed.f32, stride)
+
+
+def seed_block_topk(flat: torch.Tensor, seed: SeedPatch, stride: int,
+                    k: int) -> torch.Tensor:
+    """(2B, R) int8 oriented reads -> (2B, nb, min(k, 128)) int32, each
+    128-diagonal block's k largest keys.  CUDA tensors run the kernel
+    (1 <= k <= MAX_TOPK), CPU tensors the plain version (any k >= 1)."""
+    if flat.is_cuda:
+        return seed_block_topk_cuda(flat, seed, stride, k)
+    if k < 1:
+        raise ValueError(f"k = {k} below 1")
+    return seed_block_topk_plain(flat, seed.f32, stride, min(k, BLOCK))
+
+
+def extend_segments(flat: torch.Tensor, refp: torch.Tensor, prepad: int,
+                    match: int, mismatch: int,
+                    offs: Optional[torch.Tensor] = None,
+                    rows: Optional[torch.Tensor] = None,
+                    keys: Optional[torch.Tensor] = None,
+                    D: Optional[int] = None,
+                    k: Optional[int] = None) -> dict:
+    """The Kadane segment of every candidate of (N, R) int8 reads, dict of
+    (N, k) int32 score, start, end, matches, length: offsets ``offs``
+    into ``refp`` with ``prepad`` PAD codes before position 0; with
+    ``rows``, (row, col) candidates of the tiles ``refp``, ``prepad`` their
+    halo; with ``keys``/``D``/``k``, the row's top min(k, D) diagonals of
+    seed_block_topk's keys, their offsets returned as ``off``.  CUDA
+    tensors run the kernel, CPU tensors the plain version."""
+    if flat.shape[1] > prepad:
+        # a clipped window must stay inside the PAD run (the tiles' halo)
+        raise ValueError(f"read width {flat.shape[1]} exceeds the "
+                         f"reference's prepad {prepad}")
+    args = (flat, refp, prepad, match, mismatch)
+    kw = dict(offs=offs, rows=rows, keys=keys, D=D, k=k)
+    if flat.is_cuda:
+        return extend_segments_cuda(*args, **kw)
+    return extend_segments_plain(*args, **kw)
 
 
 def extend_fold(flat: torch.Tensor, coord_off: torch.Tensor,

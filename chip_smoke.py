@@ -50,16 +50,33 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              hg38-size tiles: every output equal, one launch a case,
              kernel_ms, device_ms (both seeding kernels), plain_ms, the
              data's bytes and sectors, bound_ms, and the yardstick: one
-             torch.sort of the rows' int64 keys
+             torch.sort of the rows' int64 keys; then a fourth line for
+             the all-hits modes of csrc/anchor.cu at bench/anchor_bench.py's
+             MULTI_SHAPES — the segments mode (extend_segments) on the flat
+             engine's align_multi chunk over a 100 Mbp prepadded genome, a
+             sharded chunk with empty slots, the XL chunk over hg38-size
+             tiles (empty slots on row T), and in keys mode after the
+             seeding's top-k epilogue (seed_block_topk) at the candidate
+             sites' shapes (128-wide anchor tiles against the candidate
+             regions, 256-wide queries against the anchor, stride 3), k 1,
+             D below 128 and off a multiple of 128, all-PAD rows, a
+             period-128 reference, 320-wide reads, a 20 kb reference:
+             every output equal, one launch a case, kernel_ms, device_ms,
+             plain_ms, bound_ms, and for the top-k the library route
+             (torch.matmul in bfloat16 + torch.topk)
   parity     rows and counters of call_gene on cuda == on cpu, on the flat
              engine and on the XL and sharded engines (forced); the same for
              call_gene_cells on the cells of tests/test_pipeline_synthetic.py
              (one of them in 160-wide rows): sc_rows_equal,
              sc_counters_equal
   main_path  per-stage times, reads/s, peak device memory, kernel launches
-             (the anchored and genome kernels' too), a sample of their
-             batches held equal to the plain versions, and each kernel
-             timed on this path's own first batch
+             (the anchored, genome and all-hits kernels' too), a sample of
+             their batches held equal to the plain versions, each kernel
+             timed on this path's own first batch, and the path's all-hits
+             programs replayed as the plain torch chains and through the
+             kernels (multi_chains); no CUDA tensor may reach those plain
+             chains during the call; then a host_profile line: a warm
+             call_gene under cProfile, the top functions of each stage
   profile    a second, warm call_gene under torch.profiler: device busy
              time, idle share, the kernels with the most device time
   sc_path    call_gene_cells on the main_path pipeline: 96 cells of 50,000
@@ -68,7 +85,10 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              batch's anchor_align_s, the sum and max of the per-cell stage
              times, peak device memory, SW launches and batches, failures;
              the fusion called in exactly its 12 cells; 4 cells of the
-             160-wide half equal to call_gene alone; a profiled warm repeat
+             160-wide half equal to call_gene alone; the all-hits kernels'
+             sampled batches and multi_chains as in main_path; a
+             host_profile line (one fusion cell's warm call_gene under
+             cProfile); a profiled warm repeat
   engines    the flat (device index build), XL and sharded engines on the
              main_path genome at the real tile size: equal records on
              131,072 reads, each engine's first genome-kernel batches
@@ -90,7 +110,9 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              that must give the same rows and scores; that the C codec
              decoded both FASTQ files; and the config-2 run once more in
              this process (``bulk.main``) on cuda, with the SW kernel's
-             inputs captured: same rows, scores within FILTER_TOL
+             inputs captured: same rows, scores within FILTER_TOL; the
+             all-hits kernels launched, their sampled batches equal to the
+             plain versions, and multi_chains
   sc_cli     ``python -m anchored_fusion_tpu_torch.cli.sc`` on the cli
              genome with 24 cells of 5,000 pairs (.fastq.gz, 6 with the
              fusion), filter off and then on with the cli phase's model: rc,
@@ -144,8 +166,9 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              kernels and as the plain torch chain on the card), then the
              sharded engine (stride 1, k 13, 3 shards); the engineered
              ANCA--PRTB call must be made at its breakpoint with the
-             partner past int32; both engines' first genome-kernel batches
-             equal to the plain versions
+             partner past int32; both engines' first genome-kernel and
+             all-hits batches equal to the plain versions, and each
+             engine's multi_chains
   (seconds)  {"phase_seconds": ...}: the wall time of each phase
   (kernels)  {"kernels": [...]}: both entries of the SW kernel
              (sw_align_fused, sw_end) with their launches in main_path, in
@@ -172,7 +195,13 @@ hg38-scale path on a 3.1 Gbp genome.  Each phase prints one JSON line:
              counts, times and bound on the path's first batch (xl_path's
              XL batch beside seed_vote's), the yardstick (torch.sort) and
              the largest difference over the cases and every path's
-             samples
+             samples.  Then seed_block_topk and extend_segments (the
+             all-hits modes) with their launches in every phase, times and
+             bound on main_path's first batch (the segments mode's keys
+             source beside its offsets, and xl_path's tiles), the top-k's
+             library route, the kernel phase's cases, every path's chains
+             against the kernels, and the largest difference over the
+             cases and every path's samples
 
 The last line is {"ok": true, "device": {...}}.  Any failure exits non-zero
 without it; so does a machine without CUDA, or a directory without the
@@ -279,10 +308,11 @@ def phase_kernel():
     KERNEL_SHAPES, a tie-heavy batch, and the forward-only entry with random
     masks; then at LONG_SHAPES, rows walked in strips, random and tie-heavy
     pairs through the fused entry and random masks through the forward-only
-    one.  Then the anchored kernels (anchor_kernel_cases) and the genome
-    kernels (seed_vote_kernel_cases).  Every source is built first, all at
-    once.  Returns the long-row records, the anchored kernels' record and
-    the genome kernels' record."""
+    one.  Then the anchored kernels (anchor_kernel_cases), the genome
+    kernels (seed_vote_kernel_cases) and the all-hits modes
+    (multi_kernel_cases).  Every source is built first, all at once.
+    Returns the long-row records and the anchored, genome and all-hits
+    kernels' records."""
     import numpy as np
     import torch
     from anchored_fusion_tpu_torch.bench import sw_bench as swb
@@ -325,7 +355,8 @@ def phase_kernel():
           "library": os.path.basename(so), "build_s": round(build_s, 3),
           "ptxas": sw_cuda.ptxas_usage(), "shapes": results})
     return ([r for r in results if r["kind"].startswith("long")],
-            anchor_kernel_cases(), seed_vote_kernel_cases())
+            anchor_kernel_cases(), seed_vote_kernel_cases(),
+            multi_kernel_cases())
 
 
 # ------------------------------------------------------- anchored kernels
@@ -338,7 +369,8 @@ def phase_kernel():
 ANCHOR_SAMPLE = 2           # launches kept per kernel, mode and shape
 # The hand-written kernels call_gene on the flat engine launches (besides
 # the SW kernel), and those of the XL engine's align.
-MAIN_KERNELS = ("seed_block_max", "extend_fold", "seed_vote")
+MAIN_KERNELS = ("seed_block_max", "extend_fold", "seed_vote",
+                "seed_block_topk", "extend_segments")
 XL_KERNELS = ("seed_vote", "extend_fold_tiles")
 
 
@@ -679,18 +711,24 @@ def anchor_kernel_cases() -> dict:
 
 
 @contextlib.contextmanager
-def capturing_anchor(captured: list):
+def capturing_anchor(captured: list, programs: list = None):
     """While the block runs, keep copies of the inputs of the first
     ANCHOR_SAMPLE launches of each anchored and genome kernel at each
     (mode, shape) in ``captured`` (references, patch matrices, indexes and
     tiles are held, not copied: the path does not change them), to hold
-    them equal to the plain versions afterwards."""
+    them equal to the plain versions afterwards.  With ``programs`` (a
+    dict), also count every all-hits program the block runs by kind
+    (``seen``) and keep the inputs of up to REPLAY_CAP of each (``calls``,
+    by reference; multi_replay times them as the plain chains and as the
+    kernels)."""
     from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
 
     seed_fn = anchor_cuda.seed_block_max_cuda
     fold_fn = anchor_cuda.extend_fold_cuda
     vote_fn = seed_vote_cuda.seed_vote_cuda
-    seen = {}
+    topk_fn = anchor_cuda.seed_block_topk_cuda
+    seg_fn = anchor_cuda.extend_segments_cuda
+    seen, last_topk = {}, {}
 
     def keep(key) -> bool:
         seen[key] = seen.get(key, 0) + 1
@@ -716,25 +754,59 @@ def capturing_anchor(captured: list):
                              {"tile": tile}))
         return vote_fn(flat, *args, tile=tile)
 
+    def topk_rec(flat, seed, stride, k):
+        if keep(("topk", tuple(flat.shape), seed.diagonals, stride, k)):
+            captured.append(("topk", (flat.clone(), seed, stride, k), {}))
+        last_topk.update(flat=flat, seed=seed, stride=stride)
+        return topk_fn(flat, seed, stride, k)
+
+    def seg_rec(flat, refp, *args, **kw):
+        mode = _segments_mode(kw)
+        if keep(("segments", tuple(flat.shape), mode)):
+            captured.append(("segments", (flat.clone(), refp, *args),
+                             {n: (v.clone() if hasattr(v, "clone") else v)
+                              for n, v in kw.items()}))
+        if programs is not None:
+            prog = {"offsets": "genome_multi", "tiles": "xl_multi",
+                    "keys": "multi_core"}[mode]
+            seen = programs.setdefault("seen", {})
+            seen[prog] = seen.get(prog, 0) + 1
+            calls = programs.setdefault("calls", [])
+            if sum(c[0] == prog for c in calls) < REPLAY_CAP:
+                extra = ((last_topk["seed"], last_topk["stride"])
+                         if mode == "keys" and last_topk.get("flat") is flat
+                         else ())
+                calls.append((prog, (flat, refp, *args),
+                              {n: v for n, v in kw.items() if n != "keys"},
+                              extra))
+        return seg_fn(flat, refp, *args, **kw)
+
     anchor_cuda.seed_block_max_cuda = seed_rec
     anchor_cuda.extend_fold_cuda = fold_rec
     seed_vote_cuda.seed_vote_cuda = vote_rec
+    anchor_cuda.seed_block_topk_cuda = topk_rec
+    anchor_cuda.extend_segments_cuda = seg_rec
     try:
         yield
     finally:
         anchor_cuda.seed_block_max_cuda = seed_fn
         anchor_cuda.extend_fold_cuda = fold_fn
         seed_vote_cuda.seed_vote_cuda = vote_fn
+        anchor_cuda.seed_block_topk_cuda = topk_fn
+        anchor_cuda.extend_segments_cuda = seg_fn
 
 
 def anchor_counts() -> dict:
     """The anchored and genome kernels' launch counts in this process
-    (the extension's tile mode apart from its other modes)."""
+    (the extension's tile and segments modes and the seeding's top-k
+    epilogue apart from their other modes)."""
     from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
     return {"seed_block_max": anchor_cuda.seed_launches,
             "extend_fold": anchor_cuda.fold_launches,
             "seed_vote": seed_vote_cuda.launches,
-            "extend_fold_tiles": anchor_cuda.tile_launches}
+            "extend_fold_tiles": anchor_cuda.tile_launches,
+            "seed_block_topk": anchor_cuda.topk_launches,
+            "extend_segments": anchor_cuda.segment_launches}
 
 
 def reset_anchor_counts() -> None:
@@ -742,6 +814,7 @@ def reset_anchor_counts() -> None:
     from anchored_fusion_tpu_torch.ops import anchor_cuda, seed_vote_cuda
     anchor_cuda.seed_launches = anchor_cuda.fold_launches = 0
     anchor_cuda.tile_launches = seed_vote_cuda.launches = 0
+    anchor_cuda.topk_launches = anchor_cuda.segment_launches = 0
 
 
 @contextlib.contextmanager
@@ -756,6 +829,8 @@ def uncounted():
         anchor_cuda.seed_launches = saved["seed_block_max"]
         anchor_cuda.fold_launches = saved["extend_fold"]
         anchor_cuda.tile_launches = saved["extend_fold_tiles"]
+        anchor_cuda.topk_launches = saved["seed_block_topk"]
+        anchor_cuda.segment_launches = saved["extend_segments"]
         seed_vote_cuda.launches = saved["seed_vote"]
 
 
@@ -768,6 +843,13 @@ def _fold_mode(cand: dict) -> str:
     if cand.get("rows") is not None:
         return "tiles"
     return "offsets" if cand.get("offs") is not None else "block"
+
+
+def _segments_mode(kw: dict) -> str:
+    """The segments mode's candidate source: offsets, tiles or keys."""
+    if kw.get("rows") is not None:
+        return "tiles"
+    return "offsets" if kw.get("offs") is not None else "keys"
 
 
 def _vote_outputs(out) -> dict:
@@ -795,6 +877,16 @@ def check_anchor_batches(captured) -> dict:
             want = _vote_outputs(seed_vote.seed_vote_plain(*args, **kw))
             name, mode = "seed_vote", ("diag" if kw["tile"] is None
                                        else "tile")
+        elif kind == "topk":
+            flat, seed, stride, k = args
+            got = {"keys": anchor_cuda.seed_block_topk_cuda(*args)}
+            want = {"keys": anchor.seed_block_topk_plain(flat, seed.f32,
+                                                         stride, k)}
+            name, mode = "seed_block_topk", ""
+        elif kind == "segments":
+            got = anchor_cuda.extend_segments_cuda(*args, **kw)
+            want = anchor.extend_segments_plain(*args, **kw)
+            name, mode = "extend_segments", _segments_mode(kw)
         else:
             got = anchor_cuda.extend_fold_cuda(*args, **kw)
             want = anchor.extend_fold_plain(*args, **kw)
@@ -811,15 +903,20 @@ def check_anchor_batches(captured) -> dict:
 
 def anchor_path_times(captured, path: str = "main_path",
                       keys=("seed", "block", "offsets", "tiles",
-                            "seed_vote")) -> dict:
+                            "seed_vote", "topk", "seg_offsets",
+                            "seg_keys")) -> dict:
     """The anchored and genome kernels timed beside their plain versions on
     the first captured batch of each (of ``keys``): the seeding (and the
     product alone through torch.matmul), the extension in block mode (the
     anchored stage), offsets mode (the flat engine's rescue) and tile mode
-    (the XL engine), and the genome seeding (and the row sort alone)."""
+    (the XL engine), the genome seeding (and the row sort alone), the
+    seeding's top-k epilogue (and torch.matmul + torch.topk) and the
+    segments mode by candidate source (seg_offsets, seg_tiles, seg_keys)."""
     out = {}
     for kind, args, kw in captured:
-        key = _fold_mode(kw) if kind == "fold" else kind
+        key = {"fold": lambda: _fold_mode(kw),
+               "segments": lambda: "seg_" + _segments_mode(kw)}.get(
+                   kind, lambda: kind)()
         if key not in keys or key in out:
             continue
         if kind == "seed":
@@ -827,6 +924,10 @@ def anchor_path_times(captured, path: str = "main_path",
             out[key] = seed_case(path, flat, seed, stride)
         elif kind == "seed_vote":
             out[key] = seed_vote_case(path, args, kw["tile"])
+        elif kind == "topk":
+            out[key] = topk_case(path, *args)
+        elif kind == "segments":
+            out[key] = segments_case(f"{path}_{key}", args, kw)
         else:
             out[key] = fold_case(f"{path}_{key}", args, kw)
     return out
@@ -988,6 +1089,466 @@ def genome_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
            or not e["samples_equal"]]
     if bad:
         raise AssertionError(f"genome kernels disagree: {bad}")
+    return out
+
+
+# ------------------------------------------------------- all-hits kernels
+
+# The all-hits programs' kernels (csrc/anchor.cu): the seeding's top-k
+# epilogue (seed_block_topk, _align_multi_core's seeding) and the
+# extension's segments mode (extend_segments: the flat and sharded
+# engines' offsets, the XL tiles, the candidate sites' keys).  Their cases'
+# inputs and bounds are bench/anchor_bench.py's MULTI_SHAPES.
+REPLAY_CAP = 256    # programs of each kind a path keeps for multi_replay
+REPLAY_REPS = 5     # replays under the profiler for the device time
+MULTI_KERNELS = ("seed_block_topk", "extend_segments")
+
+
+def topk_library_ms(flat, seed, stride: int, k: int) -> dict:
+    """The library route to the seeding's top-k: torch.matmul in bfloat16
+    over the D diagonals, then torch.topk of each row; each alone, and
+    both as one call (``library_ms``)."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops.encode import one_hot
+    M = flat.shape[0]
+    kk = min(k, seed.diagonals)
+    a16 = one_hot(flat[:, ::stride], torch.float32).reshape(M, -1).to(
+        torch.bfloat16)
+    w16 = seed.f32.to(torch.bfloat16)
+    c = a16 @ w16
+    rec = {"matmul_bf16_ms": swb.time_ms(lambda: a16 @ w16, 5),
+           "topk_ms": swb.time_ms(lambda: torch.topk(c, kk, dim=1), 5),
+           "library_ms": swb.time_ms(
+               lambda: torch.topk(a16 @ w16, kk, dim=1), 5)}
+    del a16, w16, c
+    return rec
+
+
+def topk_case(name: str, flat, seed, stride: int, k: int,
+              plain_reps: int = 3) -> dict:
+    """The seeding kernel's top-k epilogue against its plain version on one
+    batch: equal keys, launches, kernel and plain times, the bound, the
+    launch plan and the library route (topk_library_ms)."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
+
+    run = lambda: anchor_cuda.seed_block_topk_cuda(flat, seed, stride, k)  # noqa: E731
+    before = anchor_cuda.topk_launches
+    got = run()
+    torch.cuda.synchronize()
+    launched = anchor_cuda.topk_launches - before
+    want = anchor.seed_block_topk_plain(flat, seed.f32, stride, k)
+    equal, err = _records_equal({"keys": got}, {"keys": want})
+    M, R = flat.shape
+    bound, by = ab.topk_bound_ms(M, R, seed, k)
+    rec = {"kind": name, "rows": M, "R": R, "stride": stride,
+           "D": seed.diagonals, "blocks": got.shape[1], "k": k,
+           "equal": equal, "max_abs_err": err,
+           "plan": anchor_cuda.seed_plan(M, R, stride, seed.diagonals),
+           "kernel_ms": swb.time_ms(run, 20),
+           "device_ms": kernel_device_ms(run, "seed_block_max_kernel"),
+           "plain_ms": swb.time_ms(lambda: anchor.seed_block_topk_plain(
+               flat, seed.f32, stride, k), plain_reps),
+           "bound_ms": bound, "bound_by": by, "launches": launched}
+    rec.update(topk_library_ms(flat, seed, stride, k))
+    rec["device_share_of_bound"] = _share(bound, rec["device_ms"])
+    return rec
+
+
+def segments_case(name: str, args: tuple, kw: dict,
+                  plain_reps: int = 3) -> dict:
+    """The extension kernel's segments mode against its plain version on
+    one batch, ``args`` (flat, refp, prepad, match, mismatch) and ``kw``
+    the candidates (offs; offs and rows; keys, D and k): every field equal,
+    launches, kernel and plain times and the bound."""
+    import torch
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
+    from anchored_fusion_tpu_torch.bench import sw_bench as swb
+    from anchored_fusion_tpu_torch.ops import anchor, anchor_cuda
+
+    run = lambda: anchor_cuda.extend_segments_cuda(*args, **kw)  # noqa: E731
+    before = anchor_cuda.segment_launches
+    got = run()
+    torch.cuda.synchronize()
+    launched = anchor_cuda.segment_launches - before
+    want = anchor.extend_segments_plain(*args, **kw)
+    equal, err = _records_equal(got, want)
+    flat, refp = args[0], args[1]
+    N, R = flat.shape
+    k = got["score"].shape[1]
+    mode = _segments_mode(kw)
+    entries = (kw["keys"].shape[1] * kw["keys"].shape[2] if mode == "keys"
+               else 0)
+    bound, by = ab.segments_bound_ms(N, R, k, refp.numel(), mode, entries)
+    rec = {"kind": name, "mode": mode, "rows": N, "R": R, "k": k,
+           "equal": equal, "max_abs_err": err, "launches": launched,
+           "empty_slots": (int((kw["offs"] == ab.EMPTY_DIAG).sum())
+                           if mode == "offsets" else None),
+           "kernel_ms": swb.time_ms(run, 20),
+           "device_ms": kernel_device_ms(run, "extend_fold_kernel"),
+           "plain_ms": swb.time_ms(lambda: anchor.extend_segments_plain(
+               *args, **kw), plain_reps),
+           "bound_ms": bound, "bound_by": by}
+    rec["device_share_of_bound"] = _share(bound, rec["device_ms"])
+    return rec
+
+
+def multi_kernel_cases() -> dict:
+    """Hold the seeding's top-k epilogue and the extension's segments mode
+    equal to their plain versions at bench/anchor_bench.py's MULTI_SHAPES:
+    the flat engine's align_multi chunk on a 100 Mbp prepadded genome, a
+    sharded chunk with most slots empty, the XL chunk over hg38-size tiles,
+    the candidate sites' anchor tiles and consensus queries at stride 3,
+    k 1, D below 128, D off a multiple of 128, all-PAD rows, a reference of
+    period 128 and 320-wide reads (the K-chunked seeding); keys mode on the
+    kernel's own keys.  Every output equal, one launch a case.  Returns
+    the kernel phase's record of the two modes."""
+    import numpy as np
+    import torch
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
+    from anchored_fusion_tpu_torch.config import AlignConfig
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+
+    cfg = AlignConfig()
+    score = (cfg.match_score, cfg.mismatch_penalty)
+    rng = np.random.default_rng(ab.SEED + 12)
+    topks, segs = [], []
+    for shape in ab.MULTI_SHAPES:
+        x = ab.multi_inputs(rng, shape)
+        args = (x["flat"], x["refp"], x["prepad"], *score)
+        if x["source"] == "keys":
+            topks.append(topk_case(shape[0], x["flat"], x["seed"],
+                                   x["stride"], x["k"]))
+            kw = dict(keys=anchor_cuda.seed_block_topk_cuda(
+                x["flat"], x["seed"], x["stride"], x["k"]),
+                D=x["seed"].diagonals, k=x["k"])
+        else:
+            kw = x["kw"]
+        segs.append(segments_case(shape[0], args, kw))
+        del x, args, kw
+        torch.cuda.empty_cache()
+    rec = {"phase": "kernel", "name": "seed_block_topk, extend_segments",
+           "seed_block_topk": topks, "extend_segments": segs}
+    emit(rec)
+    bad = [r["kind"] for r in topks + segs
+           if not all(r["equal"].values()) or r["launches"] != 1
+           or r["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"all-hits kernels disagree: {bad}")
+    return rec
+
+
+def _chain(prog: str, args: tuple, kw: dict, extra: tuple):
+    """An all-hits program as the plain torch chain the port ran before
+    its kernels, on the card: the window gather and Kadane (offsets, tiles)
+    and, for _align_multi_core, first the float32 product and the full-row
+    stable top-k."""
+    import torch
+    from anchored_fusion_tpu_torch.align import aligner
+    from anchored_fusion_tpu_torch.ops import anchor
+    if prog != "multi_core":
+        return anchor.extend_segments_plain(*args, **kw)
+    flat, refp, prepad, match, mismatch = args
+    seed, stride = extra
+    counts = anchor.diag_match_counts_w(flat, seed.f32, stride=stride)
+    _, idx = aligner.stable_topk(counts.to(torch.bfloat16).float(), kw["k"])
+    offs = idx.to(torch.int32) - (flat.shape[1] - 1)
+    return anchor.offset_segments(flat, refp, offs, prepad, match, mismatch)
+
+
+def _kernels(prog: str, args: tuple, kw: dict, extra: tuple):
+    """The same program through the kernels (two launches for
+    _align_multi_core)."""
+    from anchored_fusion_tpu_torch.ops import anchor_cuda
+    if prog != "multi_core":
+        return anchor_cuda.extend_segments_cuda(*args, **kw)
+    seed, stride = extra
+    keys = anchor_cuda.seed_block_topk_cuda(args[0], seed, stride, kw["k"])
+    return anchor_cuda.extend_segments_cuda(*args, keys=keys, D=kw["D"],
+                                            k=kw["k"])
+
+
+def multi_replay(programs: dict) -> dict:
+    """The all-hits programs a path ran, by kind — genome_multi (the flat
+    and sharded engines' align_multi), xl_multi (the XL engine's),
+    multi_core (the candidate sites') — replayed on their own inputs (up to
+    REPLAY_CAP of a kind): as the plain torch chains the port ran before
+    these kernels and through the kernels, each warm, under a
+    record_function label: device ms (the union of the device intervals
+    under torch.profiler over REPLAY_REPS replays, a replay's share; None
+    where it recorded none) and CUDA-event ms of one whole replay.  ``programs`` counts every program of the path, the
+    replayed ones among them.  Launches made here are not counted."""
+    import torch
+    seen, calls = programs.get("seen", {}), programs.get("calls", [])
+    out = {}
+    with uncounted():
+        for prog in ("genome_multi", "xl_multi", "multi_core"):
+            mine = [c for c in calls if c[0] == prog
+                    and (prog != "multi_core" or c[3])]
+            if not seen.get(prog):
+                continue
+            rec = {"programs": seen[prog], "replayed": len(mine)}
+            for how, fn in (("chain", _chain), ("kernels", _kernels)):
+                def replay():
+                    with torch.profiler.record_function(f"{prog}:{how}"):
+                        for c in mine:
+                            fn(*c)
+                replay()
+                torch.cuda.synchronize()
+                st = torch.cuda.Event(enable_timing=True)
+                en = torch.cuda.Event(enable_timing=True)
+                st.record()
+                replay()
+                en.record()
+                torch.cuda.synchronize()
+                # several replays under one profile: its first
+                # intervals can be lost
+                _, busy, events, _ = profiled(
+                    lambda: [replay() for _ in range(REPLAY_REPS)])
+                rec[f"{how}_event_ms"] = st.elapsed_time(en)
+                rec[f"{how}_device_ms"] = (busy * 1e3 / REPLAY_REPS
+                                           if busy is not None else None)
+                rec[f"{how}_device_events"] = events
+            out[prog] = rec
+    return out
+
+
+@contextlib.contextmanager
+def no_plain_chains():
+    """While the block runs, a CUDA tensor handed to the all-hits programs'
+    plain chains — the window gather and Kadane (ops/anchor.py
+    offset_segments, tile_segments), the float32 product and the full-row
+    top-k (ops/anchor.py diag_match_counts_w, align/aligner.py and
+    index/kmer.py stable_topk) — raises: on the card the programs go
+    through the kernels."""
+    import torch
+    from anchored_fusion_tpu_torch.align import aligner
+    from anchored_fusion_tpu_torch.index import kmer
+    from anchored_fusion_tpu_torch.ops import anchor
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (anchor, "offset_segments"), (anchor, "tile_segments"),
+        (anchor, "diag_match_counts_w"), (aligner, "stable_topk"),
+        (kmer, "stable_topk"))]
+
+    def guard(name, fn):
+        def run(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
+                raise AssertionError(f"a CUDA tensor reached the plain "
+                                     f"chain {name}")
+            return fn(*args, **kw)
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, guard(n, fn))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def candidate_refs(sizes: list):
+    """While the block runs, record each all-hits alignment of the
+    candidate sites (call/candidates.py's four calls of
+    align_to_reference_multi: the anchor's tiles and the consensus queries
+    against the candidate regions' regions.seq, the anchor side against
+    the anchor) as (the calling line, query rows, row width, reference
+    bp) in ``sizes``."""
+    import numpy as np
+    from anchored_fusion_tpu_torch.call import candidates
+
+    fn = candidates.align_to_reference_multi
+
+    def rec(seqs, ref_codes, *args, **kw):
+        q = np.asarray(seqs)
+        sizes.append((sys._getframe(1).f_lineno, q.shape[0], q.shape[-1],
+                      len(ref_codes)))
+        return fn(seqs, ref_codes, *args, **kw)
+
+    candidates.align_to_reference_multi = rec
+    try:
+        yield
+    finally:
+        candidates.align_to_reference_multi = fn
+
+
+def ref_sizes(sizes: list) -> dict:
+    """candidate_refs' records summed up by calling line: calls, the
+    largest query batch and width, and the reference's smallest, median
+    and largest bp."""
+    import numpy as np
+    out = {}
+    for line in sorted({s[0] for s in sizes}):
+        mine = [s for s in sizes if s[0] == line]
+        bp = [s[3] for s in mine]
+        out[f"candidates.py:{line}"] = {
+            "calls": len(mine), "rows_max": max(s[1] for s in mine),
+            "width": sorted({s[2] for s in mine}),
+            "ref_bp_min": min(bp), "ref_bp_median": float(np.median(bp)),
+            "ref_bp_max": max(bp)}
+    return out
+
+
+def stage_host_profile(fn, top: int = 6) -> dict:
+    """Run ``fn`` (a warm call_gene) under stdlib cProfile, one profile a
+    pipeline stage: the pipeline's own ``_mark(stage)`` calls (pipeline.py
+    _call_stages) end each stage, seen through the module's clock, and the
+    first clock read of ``_call_stages`` ends the anchor alignment before
+    it.  For each stage its profiled host seconds and the ``top``
+    functions by cumulative and by own time.  The pipeline's code is not
+    changed."""
+    import cProfile
+    import pstats
+    from anchored_fusion_tpu_torch import pipeline
+
+    real = pipeline.time
+    profs, cur = {}, [None]
+
+    def cut(stage):
+        cur[0].disable()
+        profs.setdefault(stage, []).append(cur[0])
+        cur[0] = cProfile.Profile()
+        cur[0].enable()
+
+    class Clock:
+        """pipeline.py's ``time``: the real module, every read observed."""
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def time(self):
+            f = sys._getframe(1)
+            if f.f_code.co_name == "_mark":
+                cut(f.f_locals["stage"])
+            elif f.f_code.co_name == "_call_stages" and "_last" not in \
+                    f.f_locals:
+                cut("anchor_align")
+            return real.time()
+
+    pipeline.time = Clock()
+    cur[0] = cProfile.Profile()
+    t0 = time.time()
+    cur[0].enable()
+    try:
+        fn()
+    finally:
+        cur[0].disable()
+        pipeline.time = real
+    wall = time.time() - t0
+    def where(k):
+        path = (os.path.relpath(k[0], HERE) if k[0].startswith(HERE)
+                else os.path.basename(k[0]))
+        return f"{path}:{k[1]}:{k[2]}"[-100:]
+
+    out = {}
+    for stage, ps in profs.items():
+        st = pstats.Stats(ps[0])
+        for p in ps[1:]:
+            st.add(p)
+        rows = [(v[3], v[2], v[1], k) for k, v in st.stats.items()
+                if k[0] != __file__ and "_lsprof" not in k[2]]
+        pick = lambda i: [  # noqa: E731
+            {"fn": where(k), "cum_s": round(ct, 4), "self_s": round(tt, 4),
+             "calls": nc}
+            for ct, tt, nc, k in sorted(rows, key=lambda r: -r[i])[:top]]
+        out[stage] = {"host_s": round(st.total_tt, 4), "by_cum": pick(0),
+                      "by_self": pick(1)}
+    return {"wall_s": wall, "stages": out}
+
+
+ALLHITS_REPLACES = {
+    "seed_block_topk": ("anchored_fusion_tpu/align/aligner.py:460",
+                        ["anchored_fusion_tpu/ops/diagonal.py:73"]),
+    "extend_segments": ("anchored_fusion_tpu/align/aligner.py:221",
+                        ["anchored_fusion_tpu/align/genome.py:75",
+                         "anchored_fusion_tpu/parallel/sharded_genome.py:315",
+                         "anchored_fusion_tpu/align/genome_xl.py:273",
+                         "anchored_fusion_tpu/align/aligner.py:468",
+                         "anchored_fusion_tpu/ops/kadane.py:33"]),
+}
+
+
+def multi_kernel_entries(kernel: dict, main: dict, cli: dict, sc: dict,
+                         engines: dict, mesh: dict, bench: dict,
+                         headline: dict, xl: dict) -> list[dict]:
+    """The kernels line's entries of the seeding's top-k epilogue and the
+    extension's segments mode: launches in each phase's driven run, times
+    and bound on main_path's first batch of each (the segments mode's
+    offsets and keys sources, its tile source on xl_path's beside them),
+    the library route for the top-k (torch.matmul in bfloat16 + torch.topk;
+    none computes the segments), the kernel phase's cases, the four paths'
+    chains against the kernels (multi_replay), and the largest difference
+    from the plain versions over the cases and every path's samples."""
+    from anchored_fusion_tpu_torch.bench import anchor_bench as ab
+    checks = [main["anchor_check"], sc["anchor_check"],
+              cli["here_anchor_check"], xl["xl"]["anchor_check"],
+              xl["sharded"]["anchor_check"]]
+    replays = {"main_path": main["multi_chains"], "sc_path": sc["multi_chains"],
+               "cli": cli["here_multi_chains"],
+               "xl_path_xl": xl["xl"]["multi_chains"],
+               "xl_path_sharded": xl["sharded"]["multi_chains"]}
+    out = []
+    for name, key, cases in (("seed_block_topk", "topk",
+                              kernel["seed_block_topk"]),
+                             ("extend_segments", "seg_offsets",
+                              kernel["extend_segments"])):
+        t = main["anchor_times"][key]
+        err = max([c["max_abs_err"] for c in cases]
+                  + [c["max_abs_err_by_kernel"].get(name, 0)
+                     for c in checks])
+        rep, also = ALLHITS_REPLACES[name]
+        counts = {"main_path": main, "sc": sc, "engines": engines,
+                  "bench": bench, "headline": headline, "xl": xl}
+        entry = {
+            "name": name, "route": "cuda", "source": f"{PKG}/csrc/anchor.cu",
+            "replaces": rep, "also_replaces": also,
+            "launches": main["anchor_launches"][name],
+            **{f"{k}_launches": v["anchor_launches"][name]
+               for k, v in counts.items()},
+            "cli_launches": cli["here_anchor_launches"][name],
+            "mesh_launches": mesh["pipeline"]["anchor_launches"][name],
+            "max_abs_err": err, "ms": _ms_of(t)[0], "ms_source": _ms_of(t)[1],
+            "event_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"),
+            "path_batch": {k: t[k] for k in _TIME_KEYS},
+            "samples_equal": all(c["equal"] for c in checks),
+            "chains_vs_kernels": replays,
+            "cases": [{k: c.get(k) for k in ("kind", "rows", "R", "k",
+                                              "kernel_ms", "device_ms",
+                                              "plain_ms", "bound_ms",
+                                              "device_share_of_bound",
+                                              "library_ms")}
+                      for c in cases]}
+        if name == "seed_block_topk":
+            entry["library_call"] = ("torch.matmul, bfloat16, over D "
+                                     "diagonals, then torch.topk")
+            entry["library_matmul_ms"] = t["matmul_bf16_ms"]
+            entry["library_topk_ms"] = t["topk_ms"]
+            # the candidate references the paths built, beside the
+            # kernel phase's case (bench/anchor_bench.py REGIONS_BP)
+            entry["candidate_refs"] = {
+                "main_path": main["candidate_refs"],
+                "sc_path": sc["candidate_refs"],
+                "cli": cli["here_candidate_refs"],
+                "bench": bench["candidate_refs"],
+                "case_regions_bp": ab.REGIONS_BP}
+        else:
+            entry["keys_mode"] = {k: main["anchor_times"]["seg_keys"][k]
+                                  for k in _TIME_KEYS}
+            x = xl["xl"]["kernel_times"].get("seg_tiles")
+            entry["tiles_mode"] = ({k: x[k] for k in _TIME_KEYS}
+                                   if x else None)
+        out.append(entry)
+    bad = [e["name"] for e in out if e["max_abs_err"]
+           or not e["samples_equal"]]
+    if bad:
+        raise AssertionError(f"all-hits kernels disagree: {bad}")
     return out
 
 
@@ -1296,11 +1857,13 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
     index_s = time.time() - t0
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
 
-    captured, anchor_captured = [], []
+    captured, anchor_captured, programs, refs = [], [], {}, []
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    with capturing_sw(captured), capturing_anchor(anchor_captured):
+    with capturing_sw(captured), capturing_anchor(anchor_captured, programs), \
+            candidate_refs(refs), (no_plain_chains() if device == "cuda"
+                                   else contextlib.nullcontext()):
         t0 = time.time()
         res = pipe.call_gene(anchor.name, anchor_codes, batch,
                              out_prefix=os.path.join(tmpdir, "main"))
@@ -1333,13 +1896,17 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         "called_breakpoint": top["anchor_breakpoint"] if top else None,
         "sw_launches": launches, "sw_end_launches": end_launches,
         "anchor_launches": anchor_launches, "peak_device_bytes": peak,
+        "candidate_refs": ref_sizes(refs),
     }
     if device == "cuda":
         # a sample of each anchored kernel's batches against the plain
-        # versions, and both kernels timed on this path's own first batches
+        # versions, and both kernels timed on this path's own first
+        # batches; the all-hits programs as the plain chains and through
+        # the kernels
         rec["anchor_check"] = check_anchor_batches(anchor_captured)
         rec["anchor_times"] = anchor_path_times(anchor_captured)
-    del anchor_captured
+        rec["multi_chains"] = multi_replay(programs)
+    del anchor_captured, programs
     emit(rec)
     if top is None or top["anchor_breakpoint"] != break5:
         raise AssertionError(f"engineered fusion not called at {break5}")
@@ -1353,6 +1920,9 @@ def phase_main_path(tmpdir: str, device: str = "cuda",
         raise AssertionError("anchored kernels disagree on main-path batches")
     rerun = lambda: pipe.call_gene(anchor.name, anchor_codes, batch,  # noqa: E731
                                    out_prefix=os.path.join(tmpdir, "again"))
+    emit({"phase": "host_profile", "path": "main_path",
+          "call": "call_gene, warm, under cProfile",
+          **stage_host_profile(rerun)})
     world = {"pipe": pipe, "genome": genome, "sg": sg, "anchor": anchor,
              "partner": partner, "decoy": decoy, "break5": break5,
              "anchor_codes": anchor_codes, "rows": res.rows,
@@ -1493,11 +2063,14 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
     codes, break5 = world["anchor_codes"], world["break5"]
     out = os.path.join(tmpdir, "sc")
     os.makedirs(out, exist_ok=True)
-    failures, captured, anchor_captured = [], [], []
+    failures, captured, anchor_captured, programs = [], [], [], {}
+    refs = []
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    with capturing_sw(captured), capturing_anchor(anchor_captured):
+    with capturing_sw(captured), capturing_anchor(anchor_captured, programs), \
+            candidate_refs(refs), \
+            (no_plain_chains() if cuda else contextlib.nullcontext()):
         t0 = time.time()
         res = pipe.call_gene_cells(
             anchor.name, codes, cells,
@@ -1509,7 +2082,8 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
         anchor_launches = anchor_counts()
     peak = torch.cuda.max_memory_allocated() if cuda else None
     anchor_check = (check_anchor_batches(anchor_captured) if cuda else None)
-    del anchor_captured
+    multi_chains = multi_replay(programs) if cuda else None
+    del anchor_captured, programs
 
     expected = f"{anchor.name}--{world['partner'].name}"
     called = [c for c, r in res.items()
@@ -1533,6 +2107,15 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
                            out_prefix=os.path.join(out, "serial_" + c),
                            homo_genes=homo)
         serial[c] = c in res and r.rows == res[c].rows
+    prof_cell = check[0]
+    host = stage_host_profile(lambda: pipe.call_gene(
+        anchor.name, codes, cells[prof_cell],
+        out_prefix=os.path.join(out, "profiled_" + prof_cell),
+        homo_genes=homo))
+    emit({"phase": "host_profile", "path": "sc_path",
+          "call": f"call_gene of cell {prof_cell} "
+                  f"({cells[prof_cell].n_pairs} pairs), warm, under cProfile",
+          **host})
     wall, busy, events, top = profiled(
         lambda: pipe.call_gene_cells(
             anchor.name, codes, cells,
@@ -1558,6 +2141,8 @@ def phase_sc_path(tmpdir: str, world: dict, device: str = "cuda",
            "sw_launches": launches, "sw_end_launches": end_launches,
            "sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
            "anchor_launches": anchor_launches, "anchor_check": anchor_check,
+           "multi_chains": multi_chains,
+           "candidate_refs": ref_sizes(refs),
            "failures": [{k: f[k] for k in ("gene", "error")}
                         for f in failures],
            "called_cells": called, "fusions": fusions,
@@ -2087,11 +2672,18 @@ def phase_cli(tmpdir: str):
         native.decode_fastq_native(_read_raw(inp["paths"][k])) is not None
         for k in ("fastq1", "fastq2"))
     captured = []
-    with capturing_sw(captured):
+    here_captured, here_programs, here_refs = [], {}, []
+    with capturing_sw(captured), \
+            capturing_anchor(here_captured, here_programs), \
+            candidate_refs(here_refs), no_plain_chains():
         here = run_cli_here(inp, os.path.join(d, "here_cuda"), run_dir,
                             config2, "cuda")
         here_launches = sw_cuda.launches
         here_anchor = anchor_counts()
+    with uncounted():
+        here_check = check_anchor_batches(here_captured)
+    here_chains = multi_replay(here_programs)
+    del here_captured, here_programs
     # the config-2 run (the mesh phase's reference)
     inp["config2"] = (config2, os.path.join(d, "load"), run_dir)
 
@@ -2145,6 +2737,9 @@ def phase_cli(tmpdir: str):
            "here_rc": here["rc"], "here_wall_s": here["wall_s"],
            "here_sw_launches": here_launches,
            "here_anchor_launches": here_anchor,
+           "here_anchor_check": here_check,
+           "here_multi_chains": here_chains,
+           "here_candidate_refs": ref_sizes(here_refs),
            "here_sw_batches": [[*r.shape, w.shape[1]] for r, w in captured],
            "here_rows_equal": here_same, "here_max_score_diff": here_diff,
            "filter_off_messages": off,
@@ -2170,6 +2765,9 @@ def phase_cli(tmpdir: str):
             problems.append(f"{name} differs (max score diff {diff})")
     if not rec["sw_launches"]:
         problems.append("the CLI launched no SW kernel")
+    if not_launched(here_anchor, MULTI_KERNELS) or not here_check["equal"]:
+        problems.append(f"in-process all-hits launches {here_anchor}, "
+                        f"equal to the plain versions {here_check['equal']}")
     if not (here_launches == len(captured) == rec["rerun_sw_launches"]):
         problems.append(f"in-process SW launches {here_launches}, "
                         f"{len(captured)} captured, subprocess "
@@ -2678,7 +3276,8 @@ def phase_xl_path(tmpdir: str) -> dict:
                                  "pos_div": tensor_bytes(ga.pos_div),
                                  "tiles": tensor_bytes(ga.tiles)},
               "build_peak_device_bytes": torch.cuda.max_memory_allocated()}
-        with capturing_anchor(xl_captured):
+        xl_progs, sh_progs = {}, {}
+        with capturing_anchor(xl_captured, xl_progs), no_plain_chains():
             for which in ("cold", "warm"):
                 xl[which] = _timed_call(pipe, anchor_codes, batch,
                                         os.path.join(tmpdir, f"xl_{which}"),
@@ -2707,8 +3306,11 @@ def phase_xl_path(tmpdir: str) -> dict:
             # index)
             xl["anchor_check"] = check_anchor_batches(xl_captured)
             xl["kernel_times"] = anchor_path_times(
-                xl_captured, "xl_path", keys=("seed_vote", "tiles"))
+                xl_captured, "xl_path",
+                keys=("seed_vote", "tiles", "seg_tiles", "topk", "seg_keys"))
+        xl["multi_chains"] = multi_replay(xl_progs)
         xl_captured.clear()
+        del xl_progs
         del pipe, ga, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2739,7 +3341,8 @@ def phase_xl_path(tmpdir: str) -> dict:
             if tag == "wide_hits":
                 ga.cfg = dataclasses.replace(ga.cfg,
                                              max_hits_per_kmer=SHARDED_HITS)
-            with capturing_anchor(sh_captured):
+            with capturing_anchor(sh_captured, sh_progs), \
+                    no_plain_chains():
                 sh[tag] = _timed_call(pipe, anchor_codes, batch,
                                       os.path.join(tmpdir, f"sharded_{tag}"),
                                       break5)
@@ -2766,7 +3369,9 @@ def phase_xl_path(tmpdir: str) -> dict:
         anchor_launches = anchor_counts()
         with uncounted():
             sh["anchor_check"] = check_anchor_batches(sh_captured)
+        sh["multi_chains"] = multi_replay(sh_progs)
         sh_captured.clear()
+        del sh_progs
         del pipe, ga, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2788,7 +3393,7 @@ def phase_xl_path(tmpdir: str) -> dict:
             problems.append(f"{name} recall {rate['recall_unique']}")
     if not launches or launches != len(captured):
         problems.append(f"{launches} SW launches, {len(captured)} captured")
-    missing = not_launched(anchor_launches, XL_KERNELS)
+    missing = not_launched(anchor_launches, XL_KERNELS + MULTI_KERNELS)
     if missing or not (xl["anchor_check"]["equal"]
                        and sh["anchor_check"]["equal"]):
         problems.append(f"genome kernels not launched {missing} or unequal "
@@ -3308,8 +3913,8 @@ def phase_bench(tmpdir: str, device: str = "cuda"):
     os.makedirs(d, exist_ok=True)
     rec = {"phase": "bench", "device": device, "cut": []}
     problems = []
-    captured = []
-    with capturing_sw(captured):
+    captured, refs = [], []
+    with capturing_sw(captured), candidate_refs(refs):
         r = rec["depth_sweep"] = run_harness("depth_sweep", ["--json-only"],
                                              device)
         for fusion, v in r["json"]["fusions"].items():
@@ -3376,6 +3981,7 @@ def phase_bench(tmpdir: str, device: str = "cuda"):
                                             device)
         launches, end_launches = sw_cuda.launches, sw_cuda.end_launches
         rec["anchor_launches"] = anchor_counts()
+    rec["candidate_refs"] = ref_sizes(refs)
 
     t0 = time.time()
     asset = os.path.join(d, "positive_samples.txt")
@@ -3563,8 +4169,8 @@ def main() -> int:
         emit({"phase": "device", "nvidia_smi": smi, "name": kind,
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda})
-        long_rows, anchor_kernel, genome_kernel = run("kernel",
-                                                      phase_kernel)
+        long_rows, anchor_kernel, genome_kernel, multi_kernel = run(
+            "kernel", phase_kernel)
         with tempfile.TemporaryDirectory() as tmp:
             run("parity", phase_parity, tmp)
             rec, captured, rerun, world = run("main_path", phase_main_path,
@@ -3615,6 +4221,8 @@ def main() -> int:
                                          engines, mesh, bench, head, xl)
         kernels += genome_kernel_entries(genome_kernel, rec, cli, sc,
                                          engines, mesh, bench, head, xl)
+        kernels += multi_kernel_entries(multi_kernel, rec, cli, sc, engines,
+                                        mesh, bench, head, xl)
     except Exception:  # noqa: BLE001 - report the failing phase, exit 1
         traceback.print_exc()
         emit({"phase_seconds": seconds})

@@ -168,7 +168,7 @@ def test_anchor_plain_matches_jax(case):
     idx = anchor.block_topk_plain(bmax, lane, k, D)
     np.testing.assert_array_equal(idx.numpy(), jidx)
     np.testing.assert_array_equal(tal._block_topk_diagonals(
-        tal.diag_match_counts_w(flat, seed.f32, stride), k).numpy(), jidx)
+        anchor.diag_match_counts_w(flat, seed.f32, stride), k).numpy(), jidx)
 
     # extension and fold in block mode, and the whole core
     got = anchor.extend_fold_plain(flat, co, refp, R, MATCH,

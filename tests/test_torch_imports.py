@@ -54,7 +54,8 @@ def test_port_imports_no_jax():
                  "parallel.distributed", "parallel.launch",
                  "bench.downsample", "bench.make_positive_assets",
                  "bench.negative_scale", "bench.depth_sweep",
-                 "bench.surrogate", "bench.real_depth", "bench.headline"):
+                 "bench.surrogate", "bench.real_depth", "bench.headline",
+                 "ops.anchor", "ops.anchor_cuda", "bench.anchor_bench"):
         assert f"anchored_fusion_tpu_torch.{name}" in mods, name
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
