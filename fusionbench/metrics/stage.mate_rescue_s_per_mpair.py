@@ -1,0 +1,13 @@
+"""stage.mate_rescue_s_per_mpair: the pipeline's `time.mate_rescue_s` counter
+(pipeline.py, host clock), summed over the window's calls (a plate's
+cells each), per million read pairs completed in the window."""
+
+UNIT = "s/Mpairs"
+
+
+def read(ctx):
+    if not ctx["pairs"]:
+        return None
+    key = "time.mate_rescue_s"
+    s = [c[key] for c in ctx["counters"] if key in c]
+    return sum(s) / (ctx["pairs"] / 1e6) if s else None
