@@ -37,6 +37,7 @@ from anchored_fusion_tpu_torch.ops import anchor_cuda
 from anchored_fusion_tpu_torch.ops.anchor import (
     SeedPatch, block_max_plain, block_topk_plain, pad_reference, seed_patch)
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import span
 
 
 @dataclasses.dataclass
@@ -322,11 +323,14 @@ def records_to_result(cat: dict, min_score: int, min_identity: float,
 
 
 def concat_records(outs: list) -> dict:
-    """Concatenate per-chunk device records and bring them to the host."""
+    """Concatenate per-chunk device records and bring them to the host
+    (the span ``anchor.d2h``; its first copy waits for the queued
+    kernels)."""
     if not outs:
         return {n: np.zeros(0, np.int32) for n in RESULT_FIELDS}
-    return {n: torch.cat([o[n] for o in outs]).cpu().numpy()
-            for n in RESULT_FIELDS}
+    with span("anchor.d2h", rows=sum(len(o["score"]) for o in outs)):
+        return {n: torch.cat([o[n] for o in outs]).cpu().numpy()
+                for n in RESULT_FIELDS}
 
 
 def align_to_reference(
@@ -376,34 +380,45 @@ def align_to_reference(
     seed, refp = _seed_matrix_cached(ref_codes, R, stride, device)
     outs = []
     for lo in range(0, B, chunk):
-        sub = torch.from_numpy(seqs[lo:lo + chunk]).to(device)
+        rows = seqs[lo:lo + chunk]
+        # a pageable copy: the host waits for it and the kernels before it
+        with span("anchor.h2d", rows=len(rows), bytes=rows.nbytes):
+            sub = torch.from_numpy(rows).to(device)
         outs.append(_align_core(sub, seed, refp, top_k, cfg.match_score,
                                 cfg.mismatch_penalty, stride))
     res = records_to_result(concat_records(outs), min_score,
                             min_identity, min_seg_len)
     if cfg.gapped_refine:
         from anchored_fusion_tpu_torch.align.refine import refine_result
-        res = refine_result(res, seqs, np.asarray(ref_codes), cfg,
-                            min_score, min_identity, min_seg_len, device)
+        with span("anchor.refine"):
+            res = refine_result(res, seqs, np.asarray(ref_codes), cfg,
+                                min_score, min_identity, min_seg_len, device)
     return res
 
 
-def orient_reads(seqs: np.ndarray, strands: np.ndarray) -> np.ndarray:
+def orient_reads(seqs: np.ndarray, strands: np.ndarray,
+                 used: Optional[int] = None) -> np.ndarray:
     """Apply per-read strand to raw read codes (SAM SEQ convention), batched.
 
     Revcomp of a right-padded row leaves its PAD run in front, so row i of
-    the output reads ``rc[(j + R - len_i) % R]``.
+    the output reads ``rc[(j + R - len_i) % R]``.  The span ``orient``
+    counts the rows, the reversed ones and, where the caller gives it,
+    ``used``: how many of the oriented rows it reads.
     """
     seqs = np.asarray(seqs)
     strands = np.asarray(strands)
     R = seqs.shape[1]
-    rev_rows = np.nonzero(strands == 1)[0]
-    out = seqs.copy()
-    if len(rev_rows):
-        rc = revcomp(seqs[rev_rows])
-        lens = (seqs[rev_rows] != PAD).sum(axis=1)
-        idx = (np.arange(R)[None, :] + (R - lens[:, None])) % R
-        out[rev_rows] = np.take_along_axis(rc, idx, axis=1)
+    with span("orient", rows=len(seqs)) as sp:
+        rev_rows = np.nonzero(strands == 1)[0]
+        sp.add(reversed=len(rev_rows))
+        if used is not None:
+            sp.add(used=used)
+        out = seqs.copy()
+        if len(rev_rows):
+            rc = revcomp(seqs[rev_rows])
+            lens = (seqs[rev_rows] != PAD).sum(axis=1)
+            idx = (np.arange(R)[None, :] + (R - lens[:, None])) % R
+            out[rev_rows] = np.take_along_axis(rc, idx, axis=1)
     return out
 
 

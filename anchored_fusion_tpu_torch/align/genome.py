@@ -27,6 +27,7 @@ from anchored_fusion_tpu_torch.align.aligner import (
 from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
 from anchored_fusion_tpu_torch.ops.seed_vote_cuda import seed_vote
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import count
 
 
 def _seed_diagonals(flat, index: KmerIndex, offsets, stride: int,
@@ -167,6 +168,7 @@ class GenomeAligner:
         seqs = self._even_width(seqs)
         B, R = seqs.shape
         offsets = self._offsets(R)
+        count("genome.align_multi", chunks=-(-B // chunk))
         parts = []
         for lo in range(0, B, chunk):
             sub = seqs[lo:lo + chunk]

@@ -53,6 +53,7 @@ from anchored_fusion_tpu_torch.align.aligner import (
     AlignmentResult, MultiHits, both_strands)
 from anchored_fusion_tpu_torch.align.genome import GenomeAligner
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import count
 
 
 # Tile geometry: C genome columns per tile row plus a halo on each side, so
@@ -353,6 +354,7 @@ class GenomeAlignerXL:
         if self.mesh is not None:
             from anchored_fusion_tpu_torch.parallel.mesh import row_shard
             mine = starts[row_shard(self.mesh, len(starts), (0, 1))[0]]
+        count("genome.align_multi", chunks=len(mine))
         parts = []
         for lo in mine:
             sub = seqs[lo:lo + chunk]

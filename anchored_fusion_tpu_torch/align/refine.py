@@ -27,6 +27,7 @@ from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.ops.sw_cuda import sw_align_fused
 from anchored_fusion_tpu_torch.align.aligner import AlignmentResult, orient_reads
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import count, span
 
 def path_matches(reads: np.ndarray, wins: np.ndarray, match: int = 1,
                  mismatch: int = 4, gap_open: int = 6,
@@ -93,6 +94,16 @@ def select_for_refinement(res: AlignmentResult, read_lens: np.ndarray,
     return np.nonzero(cand)[0]
 
 
+def refinement_rows(res: AlignmentResult, read_lens: np.ndarray,
+                    cfg: AlignConfig) -> np.ndarray:
+    """The rows refine_alignments tries: suspicious = near-threshold-or-
+    better score with imperfect identity or a meaningful unaligned tail;
+    gap bridging can only add score, so 0.8*T catches every rescuable
+    indel read."""
+    return select_for_refinement(res, read_lens,
+                                 min_score=int(cfg.min_align_score * 0.8))
+
+
 def refine_alignments(
     res: AlignmentResult,
     oriented_seqs: np.ndarray,     # (N, R) strand-applied reads
@@ -101,16 +112,15 @@ def refine_alignments(
     cfg: Optional[AlignConfig] = None,
     band: Optional[int] = None,
     device="cuda",
+    sel: Optional[np.ndarray] = None,
 ) -> AlignmentResult:
-    """Return a copy of ``res`` with gapped coordinates where SW wins."""
+    """Return a copy of ``res`` with gapped coordinates where SW wins;
+    ``sel``: the rows to try (``refinement_rows`` by default)."""
     device = resolve_device(device)
     cfg = cfg or AlignConfig()
     band = band or cfg.band_half_width
-    # suspicious = near-threshold-or-better score with imperfect identity or
-    # a meaningful unaligned tail; gap bridging can only add score, so 0.8*T
-    # catches every rescuable indel read
-    sel = select_for_refinement(
-        res, read_lens, min_score=int(cfg.min_align_score * 0.8))
+    if sel is None:
+        sel = refinement_rows(res, read_lens, cfg)
     if len(sel) == 0:
         return res
     R = oriented_seqs.shape[1]
@@ -121,10 +131,11 @@ def refine_alignments(
     win_start = np.asarray(diag, np.int64) - band
     reads = np.ascontiguousarray(oriented_seqs[sel], np.int8)
     wins = extract_windows(ref_codes, win_start, W)
-    out = sw_align_fused(
-        torch.from_numpy(reads).to(device), torch.from_numpy(wins).to(device),
-        cfg.match_score, cfg.mismatch_penalty, cfg.gap_open,
-        cfg.gap_extend).cpu().numpy()
+    with span("refine.sw", pairs=len(sel)):
+        out = sw_align_fused(
+            torch.from_numpy(reads).to(device),
+            torch.from_numpy(wins).to(device), cfg.match_score,
+            cfg.mismatch_penalty, cfg.gap_open, cfg.gap_extend).cpu().numpy()
     score, er, ej, sr, sj = out
     better = score > res.score[sel]
     idx = sel[better]
@@ -162,8 +173,11 @@ def refine_result(res: AlignmentResult, seqs: np.ndarray,
     if not len(seqs):
         return res
     lens = (np.asarray(seqs) != PAD).sum(axis=1)
-    osq = orient_reads(np.asarray(seqs), res.strand)
-    new = refine_alignments(res, osq, lens, ref_codes, cfg, device=device)
+    sel = refinement_rows(res, lens, cfg)
+    count("anchor.refine", rows_refined=len(sel))
+    osq = orient_reads(np.asarray(seqs), res.strand, used=len(sel))
+    new = refine_alignments(res, osq, lens, ref_codes, cfg, device=device,
+                            sel=sel)
     ident = new.matches / np.maximum(new.length, 1)
     new.mapped = ((new.score >= min_score) & (new.length >= min_seg_len)
                   & (ident >= min_identity))

@@ -155,11 +155,13 @@ def cluster_split_reads(split_reads: List[SplitRead]) -> List[Tuple[int, List[Sp
     return list(zip(bps, groups))
 
 
-def oriented_sequences(seqs: np.ndarray, strands: np.ndarray) -> np.ndarray:
+def oriented_sequences(seqs: np.ndarray, strands: np.ndarray,
+                       used: Optional[int] = None) -> np.ndarray:
     """Apply per-read strand to raw read codes (SAM SEQ convention).
 
     Batched arithmetic gather — see align.aligner.orient_reads (the per-row
-    roll this replaces was the calling path's host hot loop).
+    roll this replaces was the calling path's host hot loop; ``used`` is
+    its span's count).
     """
     from anchored_fusion_tpu_torch.align.aligner import orient_reads
-    return orient_reads(seqs, strands)
+    return orient_reads(seqs, strands, used)

@@ -40,6 +40,7 @@ from anchored_fusion_tpu_torch.align.aligner import (
 from anchored_fusion_tpu_torch.align.genome import _seed_diagonals
 from anchored_fusion_tpu_torch.ops.anchor_cuda import extend_fold
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import count
 
 
 def _prepadded(seq: torch.Tensor) -> torch.Tensor:
@@ -393,6 +394,7 @@ class ShardedGenomeAligner:
         read_lens = (seqs != PAD).sum(axis=1).astype(np.int32)
         offsets = self._offsets(R)
         chunk = _seed_chunk(len(offsets), max_hits, 4096)
+        count("genome.align_multi", chunks=-(-B // chunk))
         kw = self._kw(top_k, max_hits)
         parts = []
         for lo in range(0, B, chunk):

@@ -45,6 +45,7 @@ from anchored_fusion_tpu_torch.call.report import write_final_fusion
 from anchored_fusion_tpu_torch.config import FINE_BLOCK_PRESET
 from anchored_fusion_tpu_torch.ops.encode import PAD
 from anchored_fusion_tpu_torch.utils.device import resolve_device
+from anchored_fusion_tpu_torch.utils.log import Stages, span, timed
 
 
 _INT32_SAFE = 2**31 - 2**20
@@ -189,22 +190,27 @@ class FusionPipeline:
         # 1. anchor alignment: split over the mesh's dp axis, or by process
         # when a multi-process run has no mesh
         from anchored_fusion_tpu_torch.parallel import distributed
-        t0 = time.time()
-        seqs = reads.seq.reshape(reads.n_pairs * 2, reads.max_len)
-        if distributed.world_size() > 1 and self.mesh is None:
-            sl = distributed.host_shard(reads.n_pairs)
-            res_l = align_to_reference(seqs[2 * sl.start:2 * sl.stop],
-                                       anchor_codes, self.cfg.align,
-                                       chunk=self.cfg.read_batch,
-                                       device=self.device)
-            res = distributed.allgather_alignment(res_l, reads.n_pairs)
-        else:
-            res = align_to_reference(seqs, anchor_codes, self.cfg.align,
-                                     chunk=self.cfg.read_batch,
-                                     device=self.device, mesh=self.mesh)
-        return self._call_stages(gene_name, anchor_codes, reads, res,
-                                 out_prefix, scores, score_fn, homo_genes,
-                                 t0=t0, align_s=time.time() - t0)
+        with span("call", pairs=reads.n_pairs):
+            with timed("anchor_align", reads=reads.n_pairs * 2) as al:
+                seqs = reads.seq.reshape(reads.n_pairs * 2, reads.max_len)
+                if distributed.world_size() > 1 and self.mesh is None:
+                    sl = distributed.host_shard(reads.n_pairs)
+                    res_l = align_to_reference(
+                        seqs[2 * sl.start:2 * sl.stop], anchor_codes,
+                        self.cfg.align, chunk=self.cfg.read_batch,
+                        device=self.device)
+                    res = distributed.allgather_alignment(res_l,
+                                                          reads.n_pairs)
+                else:
+                    res = align_to_reference(seqs, anchor_codes,
+                                             self.cfg.align,
+                                             chunk=self.cfg.read_batch,
+                                             device=self.device,
+                                             mesh=self.mesh)
+            return self._call_stages(gene_name, anchor_codes, reads, res,
+                                     out_prefix, scores, score_fn, homo_genes,
+                                     t0=al.start_ns / 1e9,
+                                     align_s=al.seconds)
 
     def call_gene_cells(
         self,
@@ -228,47 +234,51 @@ class FusionPipeline:
         genome).  With ``failures`` (a list), a cell whose host stages raise
         is recorded and skipped instead of sinking the cohort.
         """
-        t0 = time.time()
         cells = list(cell_reads.items())
         if not cells:
             return {}
-        R = max(rb.max_len for _, rb in cells)
-        parts = []
-        for _, rb in cells:
-            s = rb.seq.reshape(rb.n_pairs * 2, rb.max_len)
-            if rb.max_len < R:
-                s = np.concatenate(
-                    [s, np.full((s.shape[0], R - rb.max_len), PAD, np.int8)],
-                    axis=1)
-            parts.append(s)
-        offs = np.cumsum([0] + [p.shape[0] for p in parts])
-        res_all = align_to_reference(np.concatenate(parts), anchor_codes,
-                                     self.cfg.align, chunk=self.cfg.read_batch,
-                                     device=self.device, mesh=self.mesh)
-        align_s = time.time() - t0
         out: Dict[str, GeneCallResult] = {}
-        homo = None
-        for i, (cell, rb) in enumerate(cells):
-            sl = slice(offs[i], offs[i + 1])
-            res_c = AlignmentResult(**{f.name: getattr(res_all, f.name)[sl]
-                                       for f in dataclasses.fields(res_all)})
-            prefix = out_prefix_for(cell) if out_prefix_for else None
-            try:
-                r = self._call_stages(
-                    gene_name, anchor_codes, rb, res_c, prefix, None,
-                    score_fn, homo, t0=time.time(),
-                    align_s=align_s * (offs[i + 1] - offs[i])
-                    / max(int(offs[-1]), 1))
-            except Exception as e:  # noqa: BLE001 - per-cell isolation
-                if failures is None:
-                    raise
-                failures.append({"gene": f"{gene_name}:{cell}",
-                                 "error": repr(e),
-                                 "traceback": traceback.format_exc(),
-                                 "attempts": 1})
-                continue
-            homo = r.homo_genes
-            out[cell] = r
+        with span("call", pairs=sum(rb.n_pairs for _, rb in cells)):
+            with timed("anchor_align",
+                       reads=sum(2 * rb.n_pairs for _, rb in cells)) as al:
+                R = max(rb.max_len for _, rb in cells)
+                parts = []
+                for _, rb in cells:
+                    s = rb.seq.reshape(rb.n_pairs * 2, rb.max_len)
+                    if rb.max_len < R:
+                        s = np.concatenate(
+                            [s, np.full((s.shape[0], R - rb.max_len), PAD,
+                                        np.int8)], axis=1)
+                    parts.append(s)
+                offs = np.cumsum([0] + [p.shape[0] for p in parts])
+                res_all = align_to_reference(
+                    np.concatenate(parts), anchor_codes, self.cfg.align,
+                    chunk=self.cfg.read_batch, device=self.device,
+                    mesh=self.mesh)
+            homo = None
+            for i, (cell, rb) in enumerate(cells):
+                sl = slice(offs[i], offs[i + 1])
+                res_c = AlignmentResult(**{
+                    f.name: getattr(res_all, f.name)[sl]
+                    for f in dataclasses.fields(res_all)})
+                prefix = out_prefix_for(cell) if out_prefix_for else None
+                try:
+                    with span("cell", pairs=rb.n_pairs):
+                        r = self._call_stages(
+                            gene_name, anchor_codes, rb, res_c, prefix, None,
+                            score_fn, homo, t0=time.time(),
+                            align_s=al.seconds * (offs[i + 1] - offs[i])
+                            / max(int(offs[-1]), 1))
+                except Exception as e:  # noqa: BLE001 - per-cell isolation
+                    if failures is None:
+                        raise
+                    failures.append({"gene": f"{gene_name}:{cell}",
+                                     "error": repr(e),
+                                     "traceback": traceback.format_exc(),
+                                     "attempts": 1})
+                    continue
+                homo = r.homo_genes
+                out[cell] = r
         return out
 
     def _call_stages(
@@ -289,14 +299,9 @@ class FusionPipeline:
         ccfg = cfg.call
         counters: Dict[str, float] = {}
         t0 = t0 or time.time()
-        _last = [time.time()]
-
-        def _mark(stage: str):
-            # per-stage wall time (SURVEY §5 tracing: the e2e reads/s number
-            # is host-stage-dominated; these counters say where)
-            now = time.time()
-            counters[f"time.{stage}_s"] = round(now - _last[0], 4)
-            _last[0] = now
+        # per-stage wall time and the stage spans (SURVEY §5 tracing: the
+        # e2e reads/s number is host-stage-dominated; these say where)
+        _mark = Stages(counters).mark
 
         n = reads.n_pairs
         R = reads.max_len
@@ -351,15 +356,16 @@ class FusionPipeline:
         # 4. clipped anchored reads -> genome multi-hits; rescue filter
         clipped = np.nonzero((kind == 2) | (kind == 3))[0]
         counters["clipped_reads"] = len(clipped)
-        osq = oriented_sequences(seqs, res.strand)
+        osq = oriented_sequences(seqs, res.strand, used=len(clipped))
         keep = np.ones(len(clipped), bool)
         ghits = None
         if len(clipped):
             c_seqs = osq[clipped]
-            ghits = self.genome_aligner.align_multi(
-                c_seqs, min_score=FINE_BLOCK_PRESET.min_score,
-                min_identity=FINE_BLOCK_PRESET.min_identity,
-                min_seg_len=FINE_BLOCK_PRESET.min_seg_len)
+            with span("genome.align_multi", reads=len(clipped)):
+                ghits = self.genome_aligner.align_multi(
+                    c_seqs, min_score=FINE_BLOCK_PRESET.min_score,
+                    min_identity=FINE_BLOCK_PRESET.min_identity,
+                    min_seg_len=FINE_BLOCK_PRESET.min_seg_len)
             m_start = np.where(kind[clipped] == 2, res.read_start[clipped], 0)
             m_len = res.read_end[clipped] - res.read_start[clipped] + 1
             keep = rescue_filter(len(clipped), m_start, m_len, lens[clipped],
@@ -445,7 +451,7 @@ class FusionPipeline:
                                       self.exon_index, score_list, cnt_max,
                                       filter_on, ccfg)
         counters["emitted"] = len(rows)
-        _mark("report")
+        _mark("report", last=True)
         counters["wall_s"] = time.time() - t0
         return GeneCallResult(rows, candidates, clusters, blocks_chr,
                               homo_genes, counters)

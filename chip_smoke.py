@@ -1396,17 +1396,16 @@ def ref_sizes(sizes: list) -> dict:
 
 def stage_host_profile(fn, top: int = 6) -> dict:
     """Run ``fn`` (a warm call_gene) under stdlib cProfile, one profile a
-    pipeline stage: the pipeline's own ``_mark(stage)`` calls (pipeline.py
-    _call_stages) end each stage, seen through the module's clock, and the
-    first clock read of ``_call_stages`` ends the anchor alignment before
-    it.  For each stage its profiled host seconds and the ``top``
-    functions by cumulative and by own time.  The pipeline's code is not
-    changed."""
+    pipeline stage: each ``mark(stage)`` of the pipeline's stage sequence
+    (utils/log.py ``Stages``, in pipeline.py _call_stages) ends a stage,
+    and the sequence's start ends the anchor alignment before it.  For
+    each stage its profiled host seconds and the ``top`` functions by
+    cumulative and by own time.  The pipeline's code is not changed."""
     import cProfile
     import pstats
-    from anchored_fusion_tpu_torch import pipeline
+    from anchored_fusion_tpu_torch.utils import log
 
-    real = pipeline.time
+    real_init, real_mark = log.Stages.__init__, log.Stages.mark
     profs, cur = {}, [None]
 
     def cut(stage):
@@ -1415,22 +1414,15 @@ def stage_host_profile(fn, top: int = 6) -> dict:
         cur[0] = cProfile.Profile()
         cur[0].enable()
 
-    class Clock:
-        """pipeline.py's ``time``: the real module, every read observed."""
+    def init(self, counters):
+        cut("anchor_align")
+        real_init(self, counters)
 
-        def __getattr__(self, name):
-            return getattr(real, name)
+    def mark(self, stage, last=False):
+        cut(stage)
+        real_mark(self, stage, last)
 
-        def time(self):
-            f = sys._getframe(1)
-            if f.f_code.co_name == "_mark":
-                cut(f.f_locals["stage"])
-            elif f.f_code.co_name == "_call_stages" and "_last" not in \
-                    f.f_locals:
-                cut("anchor_align")
-            return real.time()
-
-    pipeline.time = Clock()
+    log.Stages.__init__, log.Stages.mark = init, mark
     cur[0] = cProfile.Profile()
     t0 = time.time()
     cur[0].enable()
@@ -1438,7 +1430,7 @@ def stage_host_profile(fn, top: int = 6) -> dict:
         fn()
     finally:
         cur[0].disable()
-        pipeline.time = real
+        log.Stages.__init__, log.Stages.mark = real_init, real_mark
     wall = time.time() - t0
     def where(k):
         path = (os.path.relpath(k[0], HERE) if k[0].startswith(HERE)

@@ -497,17 +497,36 @@ def test_stage_logger_traces_with_torch_profiler(tmp_path):
     import json
     from anchored_fusion_tpu_torch.utils.log import StageLogger
 
+    from anchored_fusion_tpu_torch.align.aligner import orient_reads
+    from anchored_fusion_tpu_torch.utils import log as log_mod
+
     log = StageLogger("t", profile_dir=str(tmp_path / "prof"))
     with log.stage("work", items=100):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        orient_reads(np.zeros((4, 8), np.int8), np.array([0, 1, 1, 0]))
     log.set(extra=1)
     log.dump(str(tmp_path / "stats.json"))
+    assert log_mod._sink is None
     stats = json.loads((tmp_path / "stats.json").read_text())["stats"]
     assert {"time.work_s", "rate.work_reads_per_s", "time.total_s",
             "extra", "profile_dir"} <= set(stats)
     traces = list((tmp_path / "prof").glob("t_*.trace.json"))
     assert len(traces) == 1
     assert "t.work" in traces[0].read_text()
+    # the program's span, a host event nested under the CLI stage's
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    stage, = (e for e in events if e.get("name") == "t.work")
+    orient, = (e for e in events if e.get("name") == "orient")
+    assert stage["ph"] == orient["ph"] == "X"
+    assert orient["args"]["parent"] == stage["args"]["id"]
+    assert orient["args"]["rows"] == 4 and orient["args"]["reversed"] == 2
+    assert stage["ts"] <= orient["ts"]
+    assert orient["ts"] + orient["dur"] <= stage["ts"] + stage["dur"]
+    # on the profiler's clock: inside the trace's own span of host events
+    host = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") != "aft_span"]
+    assert min(e["ts"] for e in host) - 5e3 <= stage["ts"]
+    assert stage["ts"] <= max(e["ts"] + e["dur"] for e in host) + 5e3
 
 
 def test_gene_guard_matches_jax():
