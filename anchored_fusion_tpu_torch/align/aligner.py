@@ -397,28 +397,32 @@ def align_to_reference(
 
 
 def orient_reads(seqs: np.ndarray, strands: np.ndarray,
-                 used: Optional[int] = None) -> np.ndarray:
+                 rows: Optional[np.ndarray] = None) -> np.ndarray:
     """Apply per-read strand to raw read codes (SAM SEQ convention), batched.
 
     Revcomp of a right-padded row leaves its PAD run in front, so row i of
-    the output reads ``rc[(j + R - len_i) % R]``.  The span ``orient``
-    counts the rows, the reversed ones and, where the caller gives it,
-    ``used``: how many of the oriented rows it reads.
+    the output reads ``rc[(j + R - len_i) % R]``.  With ``rows`` (indices
+    into ``seqs``) only those rows are oriented and returned, in that
+    order: ``orient_reads(seqs, strands)[rows]`` without the full copy.
+    The span ``orient`` counts the rows oriented, the reversed ones and,
+    with ``rows``, ``used``: the rows the caller reads, all of them.
     """
     seqs = np.asarray(seqs)
     strands = np.asarray(strands)
     R = seqs.shape[1]
-    with span("orient", rows=len(seqs)) as sp:
+    picked = rows is not None
+    rows = np.asarray(rows, np.intp) if picked else np.arange(len(seqs))
+    with span("orient", rows=len(rows)) as sp:
+        out, strands = seqs[rows], strands[rows]
         rev_rows = np.nonzero(strands == 1)[0]
         sp.add(reversed=len(rev_rows))
-        if used is not None:
-            sp.add(used=used)
-        out = seqs.copy()
+        if picked:
+            sp.add(used=len(rows))
         if len(rev_rows):
-            rc = revcomp(seqs[rev_rows])
-            lens = (seqs[rev_rows] != PAD).sum(axis=1)
+            fwd = out[rev_rows]
+            lens = (fwd != PAD).sum(axis=1)
             idx = (np.arange(R)[None, :] + (R - lens[:, None])) % R
-            out[rev_rows] = np.take_along_axis(rc, idx, axis=1)
+            out[rev_rows] = np.take_along_axis(revcomp(fwd), idx, axis=1)
     return out
 
 

@@ -106,7 +106,7 @@ def refinement_rows(res: AlignmentResult, read_lens: np.ndarray,
 
 def refine_alignments(
     res: AlignmentResult,
-    oriented_seqs: np.ndarray,     # (N, R) strand-applied reads
+    seqs: np.ndarray,              # (N, R) raw reads, as sequenced
     read_lens: np.ndarray,
     ref_codes: np.ndarray,
     cfg: Optional[AlignConfig] = None,
@@ -115,7 +115,8 @@ def refine_alignments(
     sel: Optional[np.ndarray] = None,
 ) -> AlignmentResult:
     """Return a copy of ``res`` with gapped coordinates where SW wins;
-    ``sel``: the rows to try (``refinement_rows`` by default)."""
+    ``sel``: the rows to try (``refinement_rows`` by default), the only
+    ones oriented by ``res.strand``."""
     device = resolve_device(device)
     cfg = cfg or AlignConfig()
     band = band or cfg.band_half_width
@@ -123,13 +124,14 @@ def refine_alignments(
         sel = refinement_rows(res, read_lens, cfg)
     if len(sel) == 0:
         return res
-    R = oriented_seqs.shape[1]
+    R = seqs.shape[1]
     W = R + 2 * band
     L = len(ref_codes)
     # window start so the current segment sits centered with +-band slack
     diag = res.ref_start[sel] - res.read_start[sel]
     win_start = np.asarray(diag, np.int64) - band
-    reads = np.ascontiguousarray(oriented_seqs[sel], np.int8)
+    reads = np.ascontiguousarray(orient_reads(seqs, res.strand, rows=sel),
+                                 np.int8)
     wins = extract_windows(ref_codes, win_start, W)
     with span("refine.sw", pairs=len(sel)):
         out = sw_align_fused(
@@ -153,7 +155,7 @@ def refine_alignments(
         new.length[idx] = er[better] - sr[better] + 1
         # exact matches of the adopted gapped paths (real identity downstream)
         new.matches[idx] = path_matches(
-            oriented_seqs[idx], wins[better],
+            reads[better], wins[better],
             cfg.match_score, cfg.mismatch_penalty, cfg.gap_open,
             cfg.gap_extend)
     return new
@@ -165,18 +167,18 @@ def refine_result(res: AlignmentResult, seqs: np.ndarray,
                   min_seg_len: int, device="cuda") -> AlignmentResult:
     """Config-gated gapped post-pass shared by both production aligners.
 
-    Orients the raw reads, refines on ``device``, and re-applies the stage's
-    mapping thresholds (an indel read can cross them only after its gap is
-    bridged).
+    Refines on ``device`` the rows ``refinement_rows`` picks (oriented,
+    those alone), and re-applies the stage's mapping thresholds (an indel
+    read can cross them only after its gap is bridged).
     """
     device = resolve_device(device)
     if not len(seqs):
         return res
-    lens = (np.asarray(seqs) != PAD).sum(axis=1)
+    seqs = np.asarray(seqs)
+    lens = (seqs != PAD).sum(axis=1)
     sel = refinement_rows(res, lens, cfg)
     count("anchor.refine", rows_refined=len(sel))
-    osq = orient_reads(np.asarray(seqs), res.strand, used=len(sel))
-    new = refine_alignments(res, osq, lens, ref_codes, cfg, device=device,
+    new = refine_alignments(res, seqs, lens, ref_codes, cfg, device=device,
                             sel=sel)
     ident = new.matches / np.maximum(new.length, 1)
     new.mapped = ((new.score >= min_score) & (new.length >= min_seg_len)

@@ -156,12 +156,12 @@ def cluster_split_reads(split_reads: List[SplitRead]) -> List[Tuple[int, List[Sp
 
 
 def oriented_sequences(seqs: np.ndarray, strands: np.ndarray,
-                       used: Optional[int] = None) -> np.ndarray:
+                       rows: Optional[np.ndarray] = None) -> np.ndarray:
     """Apply per-read strand to raw read codes (SAM SEQ convention).
 
     Batched arithmetic gather — see align.aligner.orient_reads (the per-row
-    roll this replaces was the calling path's host hot loop; ``used`` is
-    its span's count).
+    roll this replaces was the calling path's host hot loop; with ``rows``
+    only those rows, in that order).
     """
     from anchored_fusion_tpu_torch.align.aligner import orient_reads
-    return orient_reads(seqs, strands, used)
+    return orient_reads(seqs, strands, rows)

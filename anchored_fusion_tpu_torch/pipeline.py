@@ -307,7 +307,6 @@ class FusionPipeline:
         R = reads.max_len
         seqs = reads.seq.reshape(n * 2, R)
         lens = reads.length.reshape(n * 2)
-        names = [nm for nm in reads.names for _ in range(2)]
 
         kind, lclip, rclip = classify_clips(res, lens)
         counters["reads"] = n * 2
@@ -353,14 +352,14 @@ class FusionPipeline:
         counters["homo_genes"] = len(homo_genes)
         _mark("homolog")
 
-        # 4. clipped anchored reads -> genome multi-hits; rescue filter
+        # 4. clipped anchored reads -> genome multi-hits; rescue filter.  No
+        # later stage reads another row: orient the clipped rows alone
         clipped = np.nonzero((kind == 2) | (kind == 3))[0]
         counters["clipped_reads"] = len(clipped)
-        osq = oriented_sequences(seqs, res.strand, used=len(clipped))
+        c_seqs = oriented_sequences(seqs, res.strand, rows=clipped)
         keep = np.ones(len(clipped), bool)
         ghits = None
         if len(clipped):
-            c_seqs = osq[clipped]
             with span("genome.align_multi", reads=len(clipped)):
                 ghits = self.genome_aligner.align_multi(
                     c_seqs, min_score=FINE_BLOCK_PRESET.min_score,
@@ -373,7 +372,7 @@ class FusionPipeline:
         counters["clipped_kept"] = int(keep.sum())
         _mark("rescue")
         survivors = clipped[keep]
-        surv_set = {int(x): si for si, x in enumerate(survivors)}
+        c_names = [reads.names[i // 2] for i in clipped]
 
         # 5. blocks: spanning + fine
         blocks_chr = find_spanning_blocks(pair_hits, self.exon_index,
@@ -382,16 +381,17 @@ class FusionPipeline:
         if ghits is not None and len(survivors):
             infos = []
             old_to_new = np.full(len(clipped), -1, np.int64)
-            for si, ci in enumerate(survivors):
-                old_to_new[np.nonzero(clipped == ci)[0][0]] = si
+            old_to_new[keep] = np.arange(len(survivors))
+            for j in np.nonzero(keep)[0]:
+                ci = clipped[j]
                 if kind[ci] == 2:  # SM: clip then M
                     ll = int(res.read_start[ci])
                     rl = int(res.read_end[ci] - res.read_start[ci] + 1)
-                    infos.append(ClippedReadInfo(names[ci], "SM", ll, rl))
+                    infos.append(ClippedReadInfo(c_names[j], "SM", ll, rl))
                 else:              # MS: M then clip
                     ll = int(res.read_end[ci] + 1)
                     rl = int(lens[ci] - 1 - res.read_end[ci])
-                    infos.append(ClippedReadInfo(names[ci], "MS", ll, rl))
+                    infos.append(ClippedReadInfo(c_names[j], "MS", ll, rl))
             # remap hit read ids onto the survivor list
             sel = old_to_new[ghits.read_id] >= 0
             remapped = dataclasses.replace(
@@ -407,13 +407,14 @@ class FusionPipeline:
         counters["blocks"] = sum(len(b) for b in blocks_chr.values())
         _mark("blocks")
 
-        # 6. breakpoint clustering + consensus (rescue survivors only)
-        surv_mask = np.zeros(n * 2, bool)
-        surv_mask[survivors] = True
-        kinds_f = np.where(surv_mask, kind, 0)
-        srs = extract_split_reads(names, osq, lens, kinds_f, res.read_start,
-                                  res.read_end, res.ref_start, res.ref_end,
-                                  gene_name, ccfg)
+        # 6. breakpoint clustering + consensus (rescue survivors only; the
+        # clipped rows in read order, as every other kind is dropped there)
+        kinds_f = np.where(keep, kind[clipped], 0)
+        srs = extract_split_reads(c_names, c_seqs, lens[clipped], kinds_f,
+                                  res.read_start[clipped],
+                                  res.read_end[clipped],
+                                  res.ref_start[clipped],
+                                  res.ref_end[clipped], gene_name, ccfg)
         counters["split_reads"] = len(srs)
         clusters = merge_clusters(cluster_split_reads(srs), ccfg,
                                   device=self.device, mesh=self.mesh)

@@ -106,6 +106,77 @@ def test_orient_and_classify_match():
         np.testing.assert_array_equal(g, w)
 
 
+def _orient_case_reads(R=16):
+    """Rows of every length: PAD-padded, empty (all PAD) and full-width."""
+    rng = np.random.default_rng(21)
+    lens = np.array([0, 1, 5, R - 1, R, 9, R, 0, 3, 12, R, 7])
+    seqs = np.full((len(lens), R), PAD, np.int8)
+    for i, n in enumerate(lens):
+        seqs[i, :n] = rng.integers(0, 5, n)
+    return seqs
+
+
+@pytest.mark.parametrize("strands,rows", [
+    ("mixed", "all"), ("mixed", "sorted"), ("mixed", "unsorted_repeated"),
+    ("mixed", "empty"), ("forward", "all"), ("forward", "unsorted_repeated"),
+    ("reverse", "all"), ("reverse", "unsorted_repeated"), ("reverse", "empty"),
+])
+def test_orient_rows_equal_full_orientation_rows(strands, rows, monkeypatch):
+    """``orient_reads(..., rows=r)`` is ``orient_reads(...)[r]`` and counts
+    the rows it oriented (and the reversed among them) in its span."""
+    from anchored_fusion_tpu_torch.utils import log
+    seqs = _orient_case_reads()
+    n = len(seqs)
+    strand = {"mixed": np.arange(n) % 3 == 1,
+              "forward": np.zeros(n, bool),
+              "reverse": np.ones(n, bool)}[strands].astype(np.int8)
+    r = {"all": np.arange(n), "sorted": np.array([0, 1, 3, 4, 7, 10]),
+         "unsorted_repeated": np.array([10, 1, 4, 1, 0, 7, 4, 3]),
+         "empty": np.zeros(0, np.int64)}[rows]
+    full = tal.orient_reads(seqs, strand)
+    sink = []
+    monkeypatch.setattr(log, "_sink", sink)
+    got = tal.orient_reads(seqs, strand, rows=r)
+    assert got.shape == (len(r), seqs.shape[1]) and got.dtype == seqs.dtype
+    np.testing.assert_array_equal(got, full[r])
+    np.testing.assert_array_equal(seqs, _orient_case_reads())  # untouched
+    sp, = sink
+    assert sp["counts"] == {"rows": len(r), "reversed": int(strand[r].sum()),
+                            "used": len(r)}
+
+
+def test_refine_result_equals_refine_of_every_read_oriented():
+    """refine_result, orienting the refined rows alone, gives the records
+    of the JAX package's refine_alignments over the fully oriented batch,
+    with the stage's thresholds applied, field by field."""
+    from anchored_fusion_tpu.align.aligner import AlignmentResult as JRes
+    from anchored_fusion_tpu.align.refine import (
+        refine_alignments as j_refine_alignments)
+    from anchored_fusion_tpu_torch.align.refine import (
+        refinement_rows, refine_result)
+    ref = _ref(5, 1500)
+    seqs = make_reads(17, ref, 150, 128, 101)
+    cfg = TCfg()
+    res = tal.align_to_reference(seqs, ref, TCfg(gapped_refine=False),
+                                 device="cpu")
+    lens = (seqs != PAD).sum(1)
+    sel = refinement_rows(res, lens, cfg)
+    jres = JRes(**{k: np.array(v) for k, v in vars(res).items()})
+    want = j_refine_alignments(jres, jal.orient_reads(seqs, res.strand),
+                               lens, ref, JCfg())
+    ident = want.matches / np.maximum(want.length, 1)
+    want.mapped = ((want.score >= cfg.min_align_score)
+                   & (want.length >= cfg.min_seg_len) & (ident >= 0.0))
+    got = refine_result(res, seqs, ref, cfg, cfg.min_align_score, 0.0,
+                        cfg.min_seg_len, device="cpu")
+    better = got.score > res.score
+    assert len(sel) < len(seqs) and better.sum() > 5
+    assert (res.strand[better] == 1).sum() > 2
+    for k in vars(want):
+        np.testing.assert_array_equal(getattr(got, k),
+                                      np.asarray(getattr(want, k)), k)
+
+
 @pytest.mark.cuda
 def test_align_on_cuda_launches_sw_kernel_and_matches_jax():
     import torch

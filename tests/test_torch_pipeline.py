@@ -4,6 +4,7 @@ wild-type reads only.  Rows and non-time counters must be equal and the
 prediction files byte-identical.
 """
 
+import dataclasses
 import filecmp
 
 import numpy as np
@@ -68,17 +69,45 @@ def wildtype_reads(sg, anchor, seed=13):
                                   name_prefix="WT"))
 
 
+def _call_recording_stage4(pipe, mod, anchor, anchor_codes, batch, prefix):
+    """``pipe.call_gene`` with stage 4's inputs to the genome engine's
+    ``align_multi`` (the clipped reads, oriented) and the split reads
+    ``extract_split_reads`` returns (through ``mod``, the pipeline module)."""
+    seen = {}
+
+    def keep(name, fn, arg):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            seen[name] = np.asarray(a[0]) if arg else [
+                dataclasses.astuple(sr) for sr in out]
+            return out
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, "extract_split_reads",
+                   keep("split", mod.extract_split_reads, False))
+        mp.setattr(pipe.genome_aligner, "align_multi",
+                   keep("multi", pipe.genome_aligner.align_multi, True))
+        got = pipe.call_gene(anchor.name, anchor_codes, batch,
+                             out_prefix=prefix)
+    return got, seen
+
+
 def run_both(sg, anchor, batch, tmp_path, align_kw=None, engine=None):
     """call_gene in both packages; ``align_kw`` sets AlignConfig fields and
-    ``engine`` names the genome engine the port must have picked."""
+    ``engine`` names the genome engine the port must have picked.  Stage 4
+    must give ``align_multi`` the same reads and find the same split reads."""
+    import anchored_fusion_tpu.pipeline as jpipeline
+    import anchored_fusion_tpu_torch.pipeline as tpipeline
     align_kw = align_kw or {}
     anchor_codes = encode_ascii(anchor.transcript(sg.genome))
     jpipe = JFusionPipeline(sg.genome, JExonIndex(sg.gtf_dic, inject_loci=False),
                             sg.gene_rows(),
                             JPipelineConfig(align=JAlignConfig(**align_kw),
                                             filter_false_positive=False))
-    want = jpipe.call_gene(anchor.name, anchor_codes, JReadBatch(*batch),
-                           out_prefix=str(tmp_path / "jax"))
+    want, j_seen = _call_recording_stage4(
+        jpipe, jpipeline, anchor, anchor_codes, JReadBatch(*batch),
+        str(tmp_path / "jax"))
     g = sg.genome
     tgenome = TReference(list(g.names), g.starts.copy(), g.lengths.copy(),
                          g.seq.copy())
@@ -90,13 +119,18 @@ def run_both(sg, anchor, batch, tmp_path, align_kw=None, engine=None):
     if engine is not None:
         assert type(tpipe.genome_aligner).__name__ == engine
         assert type(jpipe.genome_aligner).__name__ == engine
-    got = tpipe.call_gene(anchor.name, anchor_codes, TReadBatch(*batch),
-                          out_prefix=str(tmp_path / "torch"))
+    got, t_seen = _call_recording_stage4(
+        tpipe, tpipeline, anchor, anchor_codes, TReadBatch(*batch),
+        str(tmp_path / "torch"))
     assert got.rows == want.rows
     assert got.homo_genes == want.homo_genes
     timeless = lambda c: {k: v for k, v in c.items()
                           if k != "wall_s" and not k.startswith("time.")}
     assert timeless(got.counters) == timeless(want.counters)
+    assert t_seen.keys() == j_seen.keys() and "split" in t_seen
+    assert t_seen["split"] == j_seen["split"]
+    if "multi" in j_seen:
+        np.testing.assert_array_equal(t_seen["multi"], j_seen["multi"])
     for suffix in ("_predictions.txt", "_predictions_abridged.txt"):
         assert filecmp.cmp(str(tmp_path / ("jax" + suffix)),
                            str(tmp_path / ("torch" + suffix)), shallow=False)
@@ -107,6 +141,7 @@ def test_call_gene_engineered_fusion_matches_jax(synth, tmp_path):
     sg, anchor, partner, decoy = synth
     batch, break5 = fusion_reads(sg, anchor, partner, decoy)
     got = run_both(sg, anchor, batch, tmp_path)
+    assert got.counters["split_reads"] > 0
     expected = f"{anchor.name}--{partner.name}"
     assert expected in {r["fusion"] for r in got.rows}
     assert all(decoy.name not in r["fusion"] for r in got.rows)

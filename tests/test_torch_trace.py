@@ -164,10 +164,10 @@ def test_orient_counts_the_rows_passed(sink):
     from anchored_fusion_tpu_torch.align.aligner import orient_reads
     seqs = np.random.default_rng(0).integers(0, 4, (7, 12)).astype(np.int8)
     strands = np.array([0, 1, 1, 0, 1, 0, 0], np.int8)
-    orient_reads(seqs, strands, used=2)
+    orient_reads(seqs, strands, rows=np.array([4, 1]))
     orient_reads(seqs[:3], strands[:3])
     assert [r["counts"] for r in sink] == [
-        {"rows": 7, "reversed": 3, "used": 2}, {"rows": 3, "reversed": 2}]
+        {"rows": 2, "reversed": 2, "used": 2}, {"rows": 3, "reversed": 2}]
 
 
 @pytest.fixture(scope="module")
@@ -230,14 +230,15 @@ def test_call_gene_stage_spans_equal_their_counters(world, sink, tmp_path):
     assert sum(r["counts"]["bytes"] for r in h2d) == reads.seq.nbytes
     refine, = (r for r in sink if r["name"] == "anchor.refine"
                and r["parent"] == al["id"])
+    # each orientation orients the rows its caller reads, and those alone:
+    # the refined rows, then stage 4's clipped ones
     orient, = (r for r in sink if r["name"] == "orient"
                and r["parent"] == refine["id"])
-    assert orient["counts"]["rows"] == 2 * reads.n_pairs
+    assert orient["counts"]["rows"] == orient["counts"]["used"]
     assert orient["counts"]["used"] == refine["counts"]["rows_refined"]
-    # the stage-4 orientation of every read, for the clipped ones
     o4, = (r for r in sink if r["name"] == "orient"
            and r["parent"] == mine["rescue"]["id"])
-    assert o4["counts"]["rows"] == 2 * reads.n_pairs
+    assert o4["counts"]["rows"] == o4["counts"]["used"]
     assert o4["counts"]["used"] == res.counters["clipped_reads"] > 0
     am, = (r for r in sink if r["name"] == "genome.align_multi")
     assert am["parent"] == mine["rescue"]["id"]
